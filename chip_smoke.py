@@ -1,0 +1,519 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Runs from the root of a checkout, on a machine with one NVIDIA H100, in
+four phases; any failure exits non-zero:
+
+1. Device: the card's name and power limit, torch and CUDA versions; the
+   kernels are built from ``src/repro_torch/kernels/filter_chain/csrc``
+   with nvcc and ptxas's register / shared-memory / spill report printed.
+2. Kernel vs twin: the chain and gather kernels against their plain
+   PyTorch twins on the card — ragged width (4,194,304 + 777 rows),
+   P in {1, 3, 6} with HASHMIX and an OR group, row and block monitor
+   mode, compaction on and off, saturating and lossless capacities.
+   Every output must be bit-identical.
+3. The stream: the paper's workload as users run it — ``LogStream`` with
+   seed 0 and regime drift (period 750,000 rows, amplitude 1.5), 18
+   batches of 2^22 rows x 3 f32 columns (75.5M rows), through
+   ``FilterSession.step`` of the paper CNF chain on ``engine="cuda"``
+   (compaction off, and on with ``capacity="auto"``) and on
+   ``engine="torch"``. The engines must agree exactly on masks, packed
+   survivors, ``n_kept``, the perm trajectory and the final ``save_state``
+   arrays; epochs must fire; the launch counters must show each kernel ran
+   on every step of the path that uses it.
+4. Numbers, all taken on this card: each kernel's device time at the
+   stream's shapes beside its bound, its twin's time and a one-call
+   PyTorch yardstick; end-to-end rows/s of ``session.step``; device→host
+   syncs per steady-state step.
+
+The last two lines before the final one are the kernels' JSON record and
+``nvidia-smi --query-gpu=name,power.limit``'s line; the final line is
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+import warnings
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+BATCH_ROWS = 1 << 22           # 4,194,304 rows x 3 f32 columns = 48 MiB
+N_BATCHES = 18                 # 75.5M rows: the paper's 75M-row dataset
+RAGGED_ROWS = BATCH_ROWS + 777
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+SOURCE = "src/repro_torch/kernels/filter_chain/csrc/filter_chain.cu"
+TPU_SOURCE = "src/repro/kernels/filter_chain/filter_chain.py"
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg: str = "") -> None:
+    print(msg, flush=True)
+
+
+def main() -> int:
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch is missing: run this script from "
+              "a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False: this smoke "
+              "test needs a CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = phase_device(torch)
+    errs = phase_kernels_vs_twins(torch, dev)
+    runs = phase_stream(torch, dev)
+    kernels = phase_numbers(torch, dev, runs, errs)
+    log(json.dumps({"kernels": kernels}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+# ===================================================================== 1
+def phase_device(torch) -> str:
+    from repro_torch.kernels.filter_chain import filter_chain as fc
+
+    log("== phase 1: device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    log(f"device: {torch.cuda.get_device_name(0)} "
+        f"(count {torch.cuda.device_count()})")
+    log(f"nvidia-smi: {smi}")
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    lib = fc.build()
+    log(f"kernel library {lib.path.name} ready in "
+        f"{time.perf_counter() - t0:.1f} s; nvcc/ptxas report:")
+    for line in lib.log.splitlines():
+        if line.strip():
+            log(f"  {line}")
+    return smi
+
+
+# ===================================================================== 2
+def _test_columns(torch, dev, n_rows, seed):
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    cols = np.stack([
+        r.uniform(0, 1, n_rows), r.uniform(0, 1, n_rows),
+        r.integers(0, 8, n_rows).astype(np.float64),
+        r.uniform(0, 1048576.0, n_rows)]).astype(np.float32)
+    return torch.from_numpy(cols).to(dev)
+
+
+def _test_chains():
+    from repro_torch.core import predicates as P
+
+    mix = P.Predicate("mix", 3, P.OP_HASHMIX, 0.45 * P.MIX_MOD, rounds=24,
+                      static_cost=6.0)
+    return {
+        1: ([mix], [0]),
+        3: ([P.Predicate("gt", 0, P.OP_GT, 0.2),
+             P.Predicate("lt", 1, P.OP_LT, 0.3, group="or"),
+             P.Predicate("mix", 3, P.OP_HASHMIX, 0.45 * P.MIX_MOD, rounds=24,
+                         group="or", static_cost=6.0)], [2, 1, 0]),
+        6: ([P.Predicate("gt", 0, P.OP_GT, 0.6, group="a"),
+             P.Predicate("lt", 1, P.OP_LT, 0.3, group="a"),
+             P.Predicate("bet", 0, P.OP_BETWEEN, 0.1, t2=0.9),
+             P.Predicate("eq", 2, P.OP_EQ, 3.0, group="b"),
+             P.Predicate("mix", 3, P.OP_HASHMIX, 0.45 * P.MIX_MOD, rounds=24,
+                         group="b", static_cost=6.0),
+             P.Predicate("gt2", 1, P.OP_GT, 0.05)], [4, 3, 2, 5, 1, 0]),
+    }
+
+
+def _max_abs_err(torch, got, want) -> float:
+    return float((got.to(torch.float64) - want.to(torch.float64)).abs()
+                 .max()) if got.numel() else 0.0
+
+
+def phase_kernels_vs_twins(torch, dev) -> dict:
+    """Kernel vs twin; returns the max |kernel - twin| of each kernel."""
+    from repro_torch.core import predicates as P
+    from repro_torch.kernels.filter_chain import filter_chain as fc
+
+    log("== phase 2: kernels vs twins on the card "
+        f"({RAGGED_ROWS} rows, ragged)")
+    names = ("mask", "active", "cut", "gcut", "nmon", "packed", "cnt")
+    errs = {"chain": 0.0, "gather": 0.0}
+    cols = _test_columns(torch, dev, RAGGED_ROWS, seed=1)
+    padded = torch.nn.functional.pad(cols,
+                                     (0, (-RAGGED_ROWS) % fc.DEFAULT_TILE))
+    for n_preds, (preds, perm) in _test_chains().items():
+        specs = P.pack(preds, dev)
+        perm_t = torch.tensor(perm, dtype=torch.int32).to(dev)
+        for mode in (0, 1):
+            meta = torch.tensor([RAGGED_ROWS, 1000, 7, mode],
+                                dtype=torch.int32).to(dev)
+            for compact in (False, True):
+                got = fc.filter_chain_kernel(padded, specs, perm_t, meta,
+                                             compact=compact, fill=-1.0)
+                want = fc.filter_chain_twin(padded, specs, perm_t, meta,
+                                            compact=compact, fill=-1.0)
+                torch.cuda.synchronize()
+                for name, g, w in zip(names, got, want):
+                    check(g.dtype == w.dtype and g.shape == w.shape,
+                          f"chain kernel output {name} has the wrong type")
+                    errs["chain"] = max(errs["chain"],
+                                        _max_abs_err(torch, g, w))
+                    check(torch.equal(g, w),
+                          f"chain kernel != twin: P={n_preds} mode={mode} "
+                          f"compact={compact} output={name}")
+            cnt = got[6][:, 0]
+            total = int(cnt.sum())
+            offsets = torch.cumsum(cnt, 0, dtype=torch.int32) - cnt
+            for cap in (max(total // 3, 1), total + 4096):
+                g = fc.compact_gather_kernel(got[5], offsets, cnt, cap,
+                                             fill=-1.0)
+                w = fc.compact_gather_twin(got[5], offsets, cnt, cap,
+                                           fill=-1.0)
+                torch.cuda.synchronize()
+                errs["gather"] = max(errs["gather"],
+                                     _max_abs_err(torch, g, w))
+                check(torch.equal(g, w), f"gather kernel != twin: "
+                      f"P={n_preds} mode={mode} capacity={cap}")
+                n_kept = min(total, cap)
+                mask = got[0][0, :RAGGED_ROWS].bool()
+                check(torch.equal(g[:, :n_kept], cols[:, mask][:, :n_kept]),
+                      "gathered survivors != boolean-mask survivors")
+                check(bool((g[:, n_kept:] == -1.0).all()),
+                      "gather tail is not the fill value")
+            log(f"  P={n_preds} mode={'block' if mode else 'row'}: chain "
+                f"(mask, pack) and gather (capacity {max(total // 3, 1)} "
+                f"saturating, {total + 4096} lossless) bit-identical; "
+                f"{total} survivors")
+    return errs
+
+
+# ===================================================================== 3
+def _stream_batches(torch, dev):
+    from repro_torch.configs.paper_filters import PaperWorkload
+    from repro_torch.data.stream import LogStream
+
+    wl = PaperWorkload()
+    stream = LogStream(N_BATCHES * BATCH_ROWS, BATCH_ROWS, seed=0,
+                       drift=wl.drift)
+    return [torch.from_numpy(b.columns).to(dev) for b in stream], wl
+
+
+def _drive(torch, session, batches, *, record: bool, count_syncs: bool,
+           sync_sites: set | None = None):
+    """Steps the session over the batches; returns (state, steps, syncs,
+    seconds). Device→host syncs are counted per step from step 1 on (the
+    steady state) under the "warn" sync debug mode, which is switched on
+    once before the first step and off after the last, so the switch itself
+    falls in no counted step; each sync's source line goes to
+    ``sync_sites``."""
+    state = session.init_state()
+    steps, syncs = [], []
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if count_syncs:
+            torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        for i, cols in enumerate(batches):
+            seen = len(caught)
+            state, res = session.step(state, cols)
+            if count_syncs and i > 0:
+                hits = [w for w in caught[seen:]
+                        if "synchroniz" in str(w.message).lower()]
+                syncs.append(len(hits))
+                if sync_sites is not None:
+                    sync_sites.update(
+                        f"step {i}: {Path(w.filename).name}:{w.lineno}"
+                        for w in hits)
+            if record:
+                steps.append(dict(mask=res.mask, packed=res.packed,
+                                  n_kept=res.n_kept, perm=state.perm,
+                                  group_perm=state.group_perm,
+                                  capacity=res.capacity))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if count_syncs:
+            torch.cuda.set_sync_debug_mode("default")
+    return state, steps, syncs, seconds
+
+
+def phase_stream(torch, dev) -> dict:
+    from repro_torch.configs.paper_filters import filter_chain
+    from repro_torch.core import FilterPlan, build_session
+    from repro_torch.kernels.filter_chain import filter_chain as fc
+    from repro_torch.kernels.filter_chain.ref import filter_chain_ref
+
+    log(f"== phase 3: the stream ({N_BATCHES} x {BATCH_ROWS} rows, "
+        "paper CNF chain, regime drift)")
+    t0 = time.perf_counter()
+    batches, wl = _stream_batches(torch, dev)
+    log(f"  generated and uploaded {N_BATCHES} batches in "
+        f"{time.perf_counter() - t0:.1f} s")
+    chain = filter_chain("cnf")
+    plans = {
+        "off": dict(),
+        "auto": dict(compact=True, capacity="auto"),
+    }
+    runs: dict = {"batches": batches}
+    for label, kw in plans.items():
+        rec = {}
+        for engine in ("cuda", "torch"):
+            plan = FilterPlan(chain, wl.ordering, engine=engine, **kw)
+            fc.reset_launch_counts()
+            session = build_session(plan)
+            sites: set = set()
+            state, steps, syncs, _ = _drive(torch, session, batches,
+                                            record=True, count_syncs=True,
+                                            sync_sites=sites)
+            launches = (fc.filter_chain_kernel.launches,
+                        fc.compact_gather_kernel.launches)
+            _, _, _, seconds = _drive(torch, build_session(plan), batches,
+                                      record=False, count_syncs=False)
+            rec[engine] = dict(state=state, steps=steps, syncs=syncs,
+                               launches=launches, seconds=seconds,
+                               session=session,
+                               arrays=session.save_state(state)["arrays"])
+            rows_s = N_BATCHES * BATCH_ROWS / seconds
+            log(f"  engine={engine} compact={label}: {rows_s:,.0f} rows/s "
+                f"end to end ({seconds * 1e3:.1f} ms for {N_BATCHES} steps, "
+                f"host clock + synchronize); syncs per steady step "
+                f"{syncs}; launches (chain, gather) = {launches}; final "
+                f"epoch {int(state.epoch)}, perm {state.perm.tolist()}")
+            for site in sorted(sites)[:8]:
+                log(f"    sync at {site}")
+            # PERF.md §2: no sync in a steady step, except the one read of
+            # the auto-capacity retune
+            limit = 1 if kw.get("capacity") == "auto" else 0
+            check(max(syncs) <= limit,
+                  f"engine={engine} compact={label}: {max(syncs)} "
+                  f"device->host syncs in a steady step, limit {limit}")
+        cu, to = rec["cuda"], rec["torch"]
+        want_chain = N_BATCHES
+        want_gather = N_BATCHES if kw.get("compact") else 0
+        check(cu["launches"] == (want_chain, want_gather),
+              f"cuda engine launches {cu['launches']} != "
+              f"{(want_chain, want_gather)} on compact={label}")
+        check(to["launches"] == (0, 0),
+              f"torch engine launched kernels {to['launches']}")
+        check(int(cu["state"].epoch) >= N_BATCHES // 2,
+              f"epochs did not fire: epoch {int(cu['state'].epoch)}")
+        for i, (a, b) in enumerate(zip(cu["steps"], to["steps"])):
+            check(torch.equal(a["mask"], b["mask"]), f"mask differs, step {i}")
+            check(torch.equal(a["perm"], b["perm"])
+                  and torch.equal(a["group_perm"], b["group_perm"]),
+                  f"perm trajectory differs, step {i}")
+            if a["packed"] is not None:
+                check(a["capacity"] == b["capacity"],
+                      f"capacity differs, step {i}")
+                check(int(a["n_kept"]) == int(b["n_kept"]),
+                      f"n_kept differs, step {i}")
+                check(torch.equal(a["packed"], b["packed"]),
+                      f"packed buffer differs, step {i}")
+                check(int(a["n_kept"]) > 0
+                      and bool(torch.isfinite(a["packed"]).all()),
+                      f"packed survivors empty or not finite, step {i}")
+        for k, v in cu["arrays"].items():
+            w = to["arrays"][k]
+            check(v.dtype == w.dtype and v.shape == w.shape
+                  and (v == w).all(), f"save_state array {k} differs")
+        caps = [s["capacity"] for s in cu["steps"]]
+        log(f"  compact={label}: cuda == torch on masks, packed, n_kept, "
+            f"perm trajectory and save_state arrays; capacities {caps}")
+        runs[label] = rec
+
+    # the port's dense oracle on a small slice of batch 0
+    small = batches[0][:, :100_000].contiguous()
+    from repro_torch.core import MonitorSpec, get_engine, pack
+    specs = pack(chain, dev)
+    perm = runs["off"]["cuda"]["state"].perm
+    got = get_engine("cuda").run_chain(small, specs, perm,
+                                       MonitorSpec(1000, 0))
+    want = filter_chain_ref(small, specs, perm, collect_rate=1000,
+                            sample_phase=0)
+    for f in ("mask", "active_before", "cut_counts", "n_monitored",
+              "group_cut_counts"):
+        check(torch.equal(getattr(got, f), getattr(want, f)),
+              f"cuda engine vs dense oracle: {f}")
+    log("  cuda engine == dense oracle on 100,000 rows of batch 0")
+    return runs
+
+
+# ===================================================================== 4
+def _device_ms(torch, fn, arg_sets, iters: int) -> float:
+    """Device time per call: the launches queue up behind a sleep kernel,
+    so the events time the device, not the host's enqueue pace."""
+    fn(*arg_sets[0])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for i in range(iters):
+        fn(*arg_sets[i % len(arg_sets)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _ops_per_row(pred) -> int:
+    from repro_torch.core import predicates as P
+
+    return {P.OP_GT: 1, P.OP_LT: 1, P.OP_BETWEEN: 2, P.OP_EQ: 3}.get(
+        pred.op, 6 * max(pred.rounds, 1) + 1)
+
+
+def _bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_numbers(torch, dev, runs, errs) -> list:
+    from repro_torch.configs.paper_filters import filter_chain
+    from repro_torch.core import pack
+    from repro_torch.kernels.filter_chain import filter_chain as fc
+    from repro_torch.kernels.filter_chain import ops
+
+    log(f"== phase 4: numbers on {torch.cuda.get_device_name(0)}")
+    chain = filter_chain("cnf")
+    specs = pack(chain, dev)
+    perm = runs["off"]["cuda"]["state"].perm.contiguous()
+    batches = runs["batches"][:4]          # 4 x 48 MiB: beyond the 50 MB L2
+    metas = [ops._pack_meta(BATCH_ROWS, 1000, 0, "row", dev)] * len(batches)
+    n_cols = batches[0].shape[0]
+    rows = BATCH_ROWS
+
+    def chain_args(compact):
+        return [(b, specs, perm, m) for b, m in zip(batches, metas)], \
+            dict(compact=compact)
+
+    out = []
+    # data-dependent operation count of batch 0 in the timed order
+    mask_i8, active, *_ = fc.filter_chain_kernel(batches[0], specs, perm,
+                                                 metas[0])
+    alive = active.sum(dim=0).tolist()
+    log(f"  batch 0, order {[chain[p].name for p in perm.tolist()]}: rows "
+        f"pending at each position {[int(a) for a in alive]}")
+    n_sampled = rows // 1000 + 1
+    ops_chain = sum(a * _ops_per_row(chain[p]) for a, p in
+                    zip(alive, perm.tolist())) \
+        + n_sampled * sum(_ops_per_row(p) for p in chain)
+    for compact, label, launches in (
+            (False, "filter_chain", runs["off"]["cuda"]["launches"][0]),
+            (True, "filter_chain[compact]",
+             runs["auto"]["cuda"]["launches"][0])):
+        args, kw = chain_args(compact)
+        ms = _device_ms(torch, lambda *a: fc.filter_chain_kernel(*a, **kw),
+                        args, 40)
+        plain = _device_ms(torch, lambda *a: fc.filter_chain_twin(*a, **kw),
+                           args, 4)
+        moved = n_cols * rows * 4 + rows + (n_cols * rows * 4 if compact
+                                            else 0)
+        bound_ms, bound_by = _bound(moved, ops_chain)
+        out.append(dict(name=label, route="cuda", source=SOURCE,
+                        replaces=f"{TPU_SOURCE}:156", launches=launches,
+                        max_abs_err=errs["chain"], ms=ms, plain_ms=plain,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=None))
+        log(f"  {label}: {ms:.4f} ms/launch (bound {bound_ms:.4f} ms by "
+            f"{bound_by}, {moved / 2**20:.1f} MiB, {ops_chain:,.0f} ops; "
+            f"{bound_ms / ms:.1%} of bound); twin {plain:.4f} ms")
+
+    # gather at the stream's auto capacity
+    cap = runs["auto"]["cuda"]["steps"][-1]["capacity"]
+    gather_sets, kept = [], []
+    for b, m in zip(batches, metas):
+        *_, packed, cnt = fc.filter_chain_kernel(b, specs, perm, m,
+                                                 compact=True)
+        cnt = cnt[:, 0]
+        off = torch.cumsum(cnt, 0, dtype=torch.int32) - cnt
+        gather_sets.append((packed, off, cnt, cap))
+        kept.append(min(int(cnt.sum()), cap))
+    masks = [(b, fc.filter_chain_kernel(b, specs, perm, m)[0][0].bool())
+             for b, m in zip(batches, metas)]
+    ms = _device_ms(torch, fc.compact_gather_kernel, gather_sets, 40)
+    plain = _device_ms(torch, fc.compact_gather_twin, gather_sets, 4)
+    library = _device_ms(torch, lambda b, m: b[:, m], masks, 8)
+    moved = n_cols * kept[0] * 4 + n_cols * cap * 4 \
+        + 2 * 4 * (rows // fc.DEFAULT_TILE)
+    bound_ms, bound_by = _bound(moved, 0)
+    out.append(dict(name="compact_gather", route="cuda", source=SOURCE,
+                    replaces=f"{TPU_SOURCE}:372",
+                    launches=runs["auto"]["cuda"]["launches"][1],
+                    max_abs_err=errs["gather"], ms=ms, plain_ms=plain,
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=library))
+    log(f"  compact_gather: {ms:.4f} ms/launch at capacity {cap} "
+        f"({kept[0]} survivors kept; bound {bound_ms:.4f} ms by bytes); "
+        f"twin {plain:.4f} ms; boolean-mask index {library:.4f} ms")
+    for label in ("off", "auto"):
+        for engine in ("cuda", "torch"):
+            r = runs[label][engine]
+            log(f"  end to end engine={engine} compact={label}: "
+                f"{N_BATCHES * BATCH_ROWS / r['seconds']:,.0f} rows/s; "
+                f"syncs per steady step max {max(r['syncs'])}")
+            _profile_steps(torch, r["session"].plan, runs["batches"],
+                           r["seconds"] / N_BATCHES)
+    return out
+
+
+def _profile_steps(torch, plan, batches, step_s: float, n: int = 4) -> None:
+    """Device kernels per steady step, under torch.profiler, beside the
+    unprofiled step time: how much of a step the device is busy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import build_session
+
+    session = build_session(plan)
+    state, _ = session.step(session.init_state(), batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for cols in batches[1:n + 1]:
+            state, _ = session.step(state, cols)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(getattr(e, "self_device_time_total", 0.0) for e in kernels)
+    count = sum(e.count for e in kernels)
+    if not kernels or busy_us <= 0.0:
+        log("    profiler: no device time recorded")
+        return
+    per_step = busy_us / n
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+    log(f"    profiler: {count / n:.0f} device kernels and {per_step:.1f} "
+        f"us of device time per step = {per_step / (step_s * 1e6):.1%} of "
+        f"the unprofiled step ({step_s * 1e3:.3f} ms); top: " + "; ".join(
+            f"{e.key[:40]} {e.self_device_time_total / n:.1f} us"
+            for e in top))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

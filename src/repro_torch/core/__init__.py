@@ -1,0 +1,32 @@
+"""Adaptive filter ordering — the paper's contribution, in PyTorch.
+
+Public API (one plan, one session), as in ``repro.core``:
+  FilterPlan, TokenizeSpec         — the declarative config surface
+  build_session → FilterSession    — compiled plan on one device; one
+                                     ``session.step`` returning StepResult
+  Predicate, pack, OP_*            — predicate algebra (CNF via ``group``)
+  OrderingConfig, OrderState       — Table-1 parameters + adaptive state
+  Scope, EXCHANGE_MODES            — statistics scopes and exchange modes
+  engine (get_engine/register)     — the "torch" and "cuda" engines
+"""
+
+from repro_torch.core.engine import (ChainResult, MonitorSpec,
+                                     available_engines, get_engine, register)
+from repro_torch.core.ordering import (OrderingConfig, OrderState,
+                                       init_order_state)
+from repro_torch.core.plan import FilterPlan, TokenizeSpec, validate_combo
+from repro_torch.core.predicates import (OP_BETWEEN, OP_EQ, OP_GT,
+                                         OP_HASHMIX, OP_LT, Predicate,
+                                         pack, paper_filters_4,
+                                         paper_filters_cnf)
+from repro_torch.core.scope import EXCHANGE_MODES, Scope
+from repro_torch.core.session import FilterSession, StepResult, build_session
+
+__all__ = [
+    "ChainResult", "MonitorSpec", "available_engines", "get_engine",
+    "register", "OrderingConfig", "OrderState", "init_order_state",
+    "FilterPlan", "TokenizeSpec", "validate_combo", "OP_BETWEEN", "OP_EQ",
+    "OP_GT", "OP_HASHMIX", "OP_LT", "Predicate", "pack", "paper_filters_4",
+    "paper_filters_cnf", "EXCHANGE_MODES", "Scope", "FilterSession",
+    "StepResult", "build_session",
+]

@@ -1,0 +1,242 @@
+"""The adaptive filter operator: the functional step math (unsharded).
+
+PyTorch port of ``repro.core.adaptive_filter``. ``AdaptiveFilter`` wires
+an engine (``core/engine``) to the ordering math (``core.ordering`` /
+``core.stats``); ``FilterSession`` (``core.session``) drives it. Every
+tensor stays on the filter's device: the only host-side decisions are the
+epoch boundary, taken from the session's mirror of the deterministic row
+counter, and the ``capacity="auto"`` retune, which reads the device once
+per epoch boundary.
+
+  plan.adaptive=False  → Spark's default Filter: statement order, the
+                         monitor stride advances but nothing re-ranks
+  scope="per_batch"    → evidence dies with each batch (stride and epoch
+                         counter persist)
+  exchange="deferred*" → the session fires the boundary (one device has
+                         nothing to merge, so the merge is the identity)
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import ordering as ordering_lib
+from repro_torch.core import predicates as pred_lib
+from repro_torch.core.engine import MonitorSpec, get_engine
+from repro_torch.core.ordering import OrderState
+from repro_torch.core.plan import FilterPlan
+from repro_torch.core.scope import Scope, scope_from_str
+from repro_torch.core.stats import FilterStats
+
+CAPACITY_QUANTUM = 128   # auto capacities are multiples of this
+
+
+class StepMetrics(NamedTuple):
+    work_units: torch.Tensor     # row-level cost-weighted work for this batch
+    n_pass: torch.Tensor         # surviving rows (mask popcount)
+    perm: torch.Tensor           # order used for this batch
+    epoch: torch.Tensor          # epochs completed so far
+    adj_rank: torch.Tensor       # current smoothed GROUP ranks
+    n_dropped: torch.Tensor      # survivors lost to capacity overflow
+    n_tiles_pass: torch.Tensor       # skip-tier tile counters (zero here)
+    n_tiles_fail: torch.Tensor
+    n_tiles_ambiguous: torch.Tensor
+
+
+class AdaptiveFilter:
+    """Adaptive CNF filter with epoch-based predicate/group reordering."""
+
+    def __init__(self, plan: FilterPlan, device):
+        self.plan = plan
+        self.device = torch.device(device)
+        self.predicates = list(plan.predicates)
+        self.specs = pred_lib.pack(self.predicates, self.device)
+        self.groups = self.specs.groups          # static CNF structure
+        self._scope = scope_from_str(plan.scope)
+        self._engine = get_engine(plan.engine)
+        self._statement_order = torch.arange(
+            len(self.predicates), dtype=torch.int32, device=self.device)
+        # deferred-async: merged stats of the previous boundary, applied
+        # one epoch late (transient: the first boundary after a restore
+        # falls back to the synchronous merge)
+        self._pending_stats: FilterStats | None = None
+        # auto-capacity: current quantized width + last epoch it was tuned
+        self._auto_cap: int | None = None
+        self._auto_cap_epoch = 0
+
+    def init_state(self) -> OrderState:
+        return ordering_lib.init_order_state(
+            len(self.predicates), self.specs.n_groups, device=self.device)
+
+    # ------------------------------------------------------ row counter
+    @property
+    def exchange_deferred(self) -> bool:
+        """True when the session fires the epoch boundaries (deferred modes)."""
+        return (self.plan.adaptive and self.plan.exchange != "eager"
+                and self._scope is Scope.CENTRALIZED)
+
+    def rows_after(self, rows_before: int, n_rows: int) -> tuple[bool, int]:
+        """Host mirror of the step's row counter.
+
+        Returns (fire, rows_into_epoch after the step) for a step of
+        ``n_rows`` rows from ``rows_before``: exactly what ``advance``
+        computes on the device, without reading it.
+        """
+        if not self.plan.adaptive:
+            return False, rows_before
+        if self._scope is Scope.PER_BATCH:
+            rows_before = 0
+        rows = rows_before + n_rows
+        calc = self.plan.ordering.calculate_rate
+        if self.exchange_deferred or rows < calc:
+            return False, rows
+        return True, rows % calc
+
+    # ------------------------------------------------------------- step
+    def _advance_state(self, state: OrderState, res, n_rows: int,
+                       fire: bool | None) -> OrderState:
+        """Fold one batch's monitor evidence into the order state."""
+        plan = self.plan
+        if not plan.adaptive:
+            return state._replace(
+                sample_phase=(state.sample_phase + n_rows)
+                % plan.ordering.collect_rate)
+        if self._scope is Scope.PER_BATCH:
+            # evidence dies with the batch; the monitor stride and the
+            # epoch counter are stream properties and persist
+            state = self.init_state()._replace(
+                sample_phase=state.sample_phase, epoch=state.epoch)
+        return ordering_lib.advance(
+            state, plan.ordering, res.cut_counts, res.monitor_cost,
+            res.n_monitored, n_rows=n_rows, group_cut=res.group_cut_counts,
+            groups=self.groups, defer_epoch=self.exchange_deferred,
+            fire=fire)
+
+    def _i32(self, v) -> torch.Tensor:
+        if isinstance(v, torch.Tensor):
+            return v.to(torch.int32)
+        return torch.full((), v, dtype=torch.int32, device=self.device)
+
+    def _metrics(self, res, perm, new_state, n_dropped=None) -> StepMetrics:
+        return StepMetrics(
+            work_units=res.work_units,
+            n_pass=res.mask.sum(dtype=torch.int32),
+            perm=perm,
+            epoch=new_state.epoch,
+            adj_rank=new_state.adj_rank,
+            n_dropped=self._i32(0) if n_dropped is None else n_dropped,
+            n_tiles_pass=self._i32(res.n_tiles_pass),
+            n_tiles_fail=self._i32(res.n_tiles_fail),
+            n_tiles_ambiguous=self._i32(res.n_tiles_ambiguous),
+        )
+
+    def _perm(self, state: OrderState) -> torch.Tensor:
+        return state.perm if self.plan.adaptive else self._statement_order
+
+    def _monitor_spec(self, state: OrderState) -> MonitorSpec:
+        return MonitorSpec(collect_rate=self.plan.ordering.collect_rate,
+                           sample_phase=state.sample_phase)
+
+    def step(self, state: OrderState, columns: torch.Tensor, *,
+             fire: bool | None = None):
+        """One micro-batch: filter + monitor + (maybe) epoch re-rank.
+
+        Returns (new_state, mask bool[R], metrics). ``fire`` is the host's
+        epoch-boundary decision (``rows_after``); None reads the device.
+        """
+        perm = self._perm(state)
+        res = self._engine.run_chain(columns, self.specs, perm,
+                                     self._monitor_spec(state))
+        new_state = self._advance_state(state, res, int(columns.shape[1]),
+                                        fire)
+        return new_state, res.mask, self._metrics(res, perm, new_state)
+
+    def _step_compact(self, state: OrderState, columns: torch.Tensor, *,
+                      capacity: int | None = None, fire: bool | None = None):
+        """``step`` + single-pass device-side survivor compaction.
+
+        Returns (new_state, packed f32[C, cap], n_kept i32[], mask bool[R],
+        metrics); ``packed[:, :n_kept]`` equals ``columns[:, mask]`` up to
+        the capacity.
+        """
+        if capacity is None:
+            if self.plan.capacity == "auto":
+                raise ValueError(
+                    "compact_capacity='auto' needs an explicit per-call "
+                    "capacity: pass capacity=filt.resolve_capacity(n_rows)")
+            capacity = self.resolve_capacity(int(columns.shape[1]))
+        perm = self._perm(state)
+        res, packed, n_kept = self._engine.run_chain_compact(
+            columns, self.specs, perm, self._monitor_spec(state),
+            capacity=capacity)
+        new_state = self._advance_state(state, res, int(columns.shape[1]),
+                                        fire)
+        n_pass = res.mask.sum(dtype=torch.int32)
+        metrics = self._metrics(res, perm, new_state,
+                                n_dropped=n_pass - n_kept)
+        return new_state, packed, n_kept, res.mask, metrics
+
+    # --------------------------------------------------- capacity auto-tune
+    def resolve_capacity(self, n_rows: int) -> int:
+        """Current compaction width for an ``n_rows``-wide batch."""
+        cap = self.plan.capacity
+        if cap is None:
+            return n_rows
+        if cap == "auto":
+            return min(self._auto_cap, n_rows) if self._auto_cap else n_rows
+        return int(cap)
+
+    def observe_for_capacity(self, evidence_state: OrderState,
+                             new_state: OrderState, n_rows: int) -> None:
+        """Re-derive the auto capacity after an epoch boundary.
+
+        ``evidence_state`` still holds the epoch's monitor accumulators
+        (the state before the boundary). Estimated pass rate = Π_g S_g over
+        the exact per-group selectivities; correlation between groups is
+        absorbed by ``slack``. Reads the device once: call it only on a
+        step that crossed a boundary.
+        """
+        if self.plan.capacity != "auto":
+            return
+        st = evidence_state.stats
+        host = torch.cat([new_state.epoch.to(torch.float64).reshape(1),
+                          st.n_monitored.to(torch.float64).reshape(1),
+                          st.group_cut.to(torch.float64)]).cpu().numpy()
+        epoch = int(host[0])
+        if epoch <= self._auto_cap_epoch:
+            return
+        self._auto_cap_epoch = epoch
+        n_mon = max(float(host[1]), 0.0)
+        if n_mon <= 0.0:
+            return                      # no evidence — keep current width
+        sel = np.clip(1.0 - host[2:] / max(n_mon, 1.0), 0.0, 1.0)
+        pass_rate = float(np.prod(sel))
+        want = pass_rate * n_rows * self.plan.slack
+        quant = int(np.ceil(want / CAPACITY_QUANTUM)) * CAPACITY_QUANTUM
+        self._auto_cap = int(np.clip(quant, CAPACITY_QUANTUM, n_rows))
+
+    # ------------------------------------------------------ deferred epochs
+    def exchange_update(self, state: OrderState,
+                        use_stats: FilterStats | None = None
+                        ) -> tuple[OrderState, FilterStats]:
+        """One epoch boundary: merge stats (identity here) and re-rank, on
+        ``use_stats`` when given. Returns (new_state, merged_stats)."""
+        merged = state.stats
+        new_state = ordering_lib.boundary_update(
+            state, self.plan.ordering, groups=self.groups,
+            stats_override=merged if use_stats is None else use_stats)
+        return new_state, merged
+
+    def exchange(self, state: OrderState) -> OrderState:
+        """Fire a due deferred boundary; "deferred-async" re-ranks on the
+        previous boundary's merged stats (the first boundary on its own)."""
+        is_async = self.plan.exchange == "deferred-async"
+        if is_async and self._pending_stats is not None:
+            state, merged = self.exchange_update(state, self._pending_stats)
+        else:
+            state, merged = self.exchange_update(state)
+        self._pending_stats = merged if is_async else None
+        return state

@@ -13,7 +13,12 @@ four phases; any failure exits non-zero:
    PyTorch twins on the card — ragged width (4,194,304 + 777 rows),
    P in {1, 3, 6} with HASHMIX and an OR group, row and block monitor
    mode, compaction on and off, saturating and lossless capacities.
-   Every output must be bit-identical.
+   Every output must be bit-identical. Then the stats kernel (same ragged
+   width, NaN, ±inf and ±0 planted inside sub-tiles; NaN positions equal
+   and ``==`` elsewhere, since min/max of ±0 may pick either zero), and the
+   chain kernel's skip variant on the same P / monitor / compaction grid
+   with two sets of decisions: random ones, and the real triage of the
+   test columns clustered on column 0 (bit-identical).
 3. The stream: the paper's workload as users run it — ``LogStream`` with
    seed 0 and regime drift (period 750,000 rows, amplitude 1.5), 18
    batches of 2^22 rows x 3 f32 columns (75.5M rows), through
@@ -23,10 +28,21 @@ four phases; any failure exits non-zero:
    survivors, ``n_kept``, the perm trajectory and the final ``save_state``
    arrays; epochs must fire; the launch counters must show each kernel ran
    on every step of the path that uses it.
+   Then the skip tier on the same stream in the sorted-ingest layout
+   (``layout="clustered"``, 8 batches of 2^22 rows): (a) ``zonemap`` on
+   both engines, (b) ``zonemap+bloom`` with ``capacity="auto"`` on both,
+   (c) ``auto`` on ``cuda`` and (d) ``off`` on both, plus ``zonemap+bloom`` with a
+   six-predicate chain holding an EQ predicate (the Bloom proofs fire).
+   Masks, packed survivors, ``n_kept``, perm trajectories and final
+   ``save_state`` arrays must agree across all of them; (a)'s tile
+   counters must be nonzero and equal across engines; the counters must
+   show the stats kernel and the skip chain kernel on every skip step.
 4. Numbers, all taken on this card: each kernel's device time at the
    stream's shapes beside its bound, its twin's time and a one-call
-   PyTorch yardstick; end-to-end rows/s of ``session.step``; device→host
-   syncs per steady-state step.
+   PyTorch yardstick; end-to-end rows/s of ``session.step`` for every
+   plan, and of the tier on vs off in 6 alternating pairs on ``cuda``;
+   device-busy share and kernels per step; device→host syncs per
+   steady-state step against the budgets of PERF.md §2.
 
 The last two lines before the final one are the kernels' JSON record and
 ``nvidia-smi --query-gpu=name,power.limit``'s line; the final line is
@@ -46,6 +62,8 @@ ROOT = Path(__file__).resolve().parent
 BATCH_ROWS = 1 << 22           # 4,194,304 rows x 3 f32 columns = 48 MiB
 N_BATCHES = 18                 # 75.5M rows: the paper's 75M-row dataset
 RAGGED_ROWS = BATCH_ROWS + 777
+N_SKIP_BATCHES = 8             # the clustered skip-tier stream (33.6M rows)
+PAIRS = 6                      # alternating off/on pairs of the tier's rate
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 SOURCE = "src/repro_torch/kernels/filter_chain/csrc/filter_chain.cu"
@@ -83,7 +101,10 @@ def main() -> int:
 
     smi = phase_device(torch)
     errs = phase_kernels_vs_twins(torch, dev)
+    errs.update(phase_skip_kernels_vs_twins(torch, dev))
     runs = phase_stream(torch, dev)
+    runs["skip"] = phase_skip_stream(torch, dev,
+                                     runs["batches"][:N_SKIP_BATCHES])
     kernels = phase_numbers(torch, dev, runs, errs)
     log(json.dumps({"kernels": kernels}))
     log(smi)
@@ -151,8 +172,19 @@ def _test_chains():
 
 
 def _max_abs_err(torch, got, want) -> float:
-    return float((got.to(torch.float64) - want.to(torch.float64)).abs()
-                 .max()) if got.numel() else 0.0
+    """max |got - want| over the entries where it is a number (packed
+    buffers carry the batch's NaN and inf values through)."""
+    d = (got.to(torch.float64) - want.to(torch.float64)).abs()
+    d = d[~torch.isnan(d)]
+    return float(d.max()) if d.numel() else 0.0
+
+
+def _bits_equal(torch, got, want) -> bool:
+    """Bit-identical: f32 outputs compare as their i32 bit patterns, so a
+    NaN carried into a packed buffer compares equal to itself."""
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    return torch.equal(got, want)
 
 
 def phase_kernels_vs_twins(torch, dev) -> dict:
@@ -213,6 +245,108 @@ def phase_kernels_vs_twins(torch, dev) -> dict:
     return errs
 
 
+def _summary_err(torch, got, want, what: str) -> float:
+    """Zone maps: NaN positions must be equal; elsewhere ``==`` (the min of
+    0.0 and -0.0 may be either zero, and no proof can tell them apart).
+    Returns the max |kernel - twin| over the non-NaN entries."""
+    check(torch.equal(torch.isnan(got), torch.isnan(want)),
+          f"stats kernel != twin: NaN positions of {what}")
+    keep = ~torch.isnan(want)
+    check(bool((got[keep] == want[keep]).all()),
+          f"stats kernel != twin: values of {what}")
+    finite = keep & torch.isfinite(want)
+    return _max_abs_err(torch, got[finite], want[finite])
+
+
+def phase_skip_kernels_vs_twins(torch, dev) -> dict:
+    """The stats kernel and the chain kernel's skip variant vs their twins;
+    returns the max |kernel - twin| of each."""
+    import numpy as np
+
+    from repro_torch.core import predicates as P
+    from repro_torch.core import skip_tier
+    from repro_torch.kernels.filter_chain import filter_chain as fc
+    from repro_torch.kernels.filter_chain import ops
+
+    log("== phase 2b: stats kernel and skip chain kernel vs twins "
+        f"({RAGGED_ROWS} rows, ragged)")
+    errs = {"stats": 0.0, "skip": 0.0}
+    cols = _test_columns(torch, dev, RAGGED_ROWS, seed=2)
+    # NaN, ±inf and ±0 planted inside sub-tiles (and in the ragged tail)
+    cols[0, 5] = float("nan")
+    cols[1, 300] = float("inf")
+    cols[1, 301] = float("-inf")
+    cols[2, 512:640] = 0.0
+    cols[2, 520] = -0.0
+    cols[3, 700:828] = -0.0
+    cols[3, 710] = 0.0
+    cols[0, RAGGED_ROWS - 3] = float("nan")
+    cols[1, 2_000_000:2_000_128] = float("inf")
+    padded = torch.nn.functional.pad(cols,
+                                     (0, (-RAGGED_ROWS) % fc.DEFAULT_TILE))
+    got = fc.tile_stats_kernel(padded)
+    want = fc.tile_stats_twin(padded)
+    torch.cuda.synchronize()
+    for g, w, what in zip(got, want, ("mins", "maxs")):
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"stats kernel output {what} has the wrong type")
+        errs["stats"] = max(errs["stats"], _summary_err(torch, g, w, what))
+    n_nan = int(torch.isnan(got[0]).sum())
+    check(n_nan == 2, f"expected 2 NaN sub-tiles in mins, got {n_nan}")
+    log(f"  tile_stats: mins/maxs [{got[0].shape[0]}, {got[0].shape[1]}] "
+        f"equal to the twin (NaN positions, then ==); {n_nan} NaN "
+        "sub-tiles")
+
+    # decisions: random, and the real triage of the columns clustered on
+    # column 0 (a stable device sort), bloom on
+    order = torch.sort(cols[0].nan_to_num(0.0), stable=True).indices
+    clustered = cols[:, order].contiguous()
+    cl_padded = torch.nn.functional.pad(
+        clustered, (0, (-RAGGED_ROWS) % fc.DEFAULT_TILE))
+    n_sub = padded.shape[1] // fc.STAT_TILE
+    r = np.random.default_rng(3)
+    rnd_pass = r.uniform(size=n_sub) < 0.3
+    rnd_fail = ~rnd_pass & (r.uniform(size=n_sub) < 0.4)
+    rand = tuple(torch.from_numpy(d.astype(np.int32)).to(dev)
+                 for d in (rnd_pass, rnd_fail))
+    names = ("mask", "active", "cut", "gcut", "nmon", "packed", "cnt")
+    for n_preds, (preds, perm) in _test_chains().items():
+        specs = P.pack(preds, dev)
+        perm_t = torch.tensor(perm, dtype=torch.int32).to(dev)
+        info = ops.skip_triage(clustered, specs, bloom=True)
+        real = (info.pass_tiles.to(torch.int32),
+                info.fail_tiles.to(torch.int32))
+        n_pass, n_fail, n_amb = (int(x) for x in
+                                 skip_tier.tile_counters(info))
+        for label, data, dec in (("random", padded, rand),
+                                 ("triage", cl_padded, real)):
+            for mode in (0, 1):
+                meta = torch.tensor([RAGGED_ROWS, 1000, 7, mode],
+                                    dtype=torch.int32).to(dev)
+                for compact in (False, True):
+                    got = fc.filter_chain_kernel(data, specs, perm_t, meta,
+                                                 compact=compact, fill=-1.0,
+                                                 skip_decisions=dec)
+                    want = fc.filter_chain_twin(data, specs, perm_t, meta,
+                                                compact=compact, fill=-1.0,
+                                                skip_decisions=dec)
+                    torch.cuda.synchronize()
+                    for name, g, w in zip(names, got, want):
+                        check(g.dtype == w.dtype and g.shape == w.shape,
+                              f"skip chain output {name} has the wrong type")
+                        errs["skip"] = max(errs["skip"],
+                                           _max_abs_err(torch, g, w))
+                        check(_bits_equal(torch, g, w),
+                              f"skip chain kernel != twin: P={n_preds} "
+                              f"{label} mode={mode} compact={compact} "
+                              f"output={name}")
+        log(f"  P={n_preds}: skip chain (row/block, mask/pack) bit-identical "
+            f"to the twin with random decisions and with the clustered "
+            f"triage ({n_pass} pass / {n_fail} fail / {n_amb} ambiguous "
+            "sub-tiles)")
+    return errs
+
+
 # ===================================================================== 3
 def _stream_batches(torch, dev):
     from repro_torch.configs.paper_filters import PaperWorkload
@@ -252,10 +386,13 @@ def _drive(torch, session, batches, *, record: bool, count_syncs: bool,
                         f"step {i}: {Path(w.filename).name}:{w.lineno}"
                         for w in hits)
             if record:
+                m = res.metrics
                 steps.append(dict(mask=res.mask, packed=res.packed,
                                   n_kept=res.n_kept, perm=state.perm,
                                   group_perm=state.group_perm,
-                                  capacity=res.capacity))
+                                  capacity=res.capacity,
+                                  tiles=(m.n_tiles_pass, m.n_tiles_fail,
+                                         m.n_tiles_ambiguous)))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         if count_syncs:
@@ -362,6 +499,200 @@ def phase_stream(torch, dev) -> dict:
               f"cuda engine vs dense oracle: {f}")
     log("  cuda engine == dense oracle on 100,000 rows of batch 0")
     return runs
+
+
+def _stream_chain6():
+    """Six predicates over the stream's columns with the structure of phase
+    2's six-chain (two OR groups, a BETWEEN, an EQ, HASHMIX); the EQ shares
+    its group with a range predicate, so Bloom proofs decide tiles."""
+    from repro_torch.core import predicates as P
+    from repro_torch.data.stream import threshold_for_quantile as q
+
+    return [
+        P.Predicate("date_gt", 0, P.OP_GT, q("date", 0.3), group="a"),
+        P.Predicate("int_lt", 1, P.OP_LT, q("int", 0.2), group="a"),
+        P.Predicate("date_bt", 0, P.OP_BETWEEN, q("date", 0.05),
+                    t2=q("date", 0.95), static_cost=1.5),
+        P.Predicate("str_eq", 2, P.OP_EQ, 777.0, group="b"),
+        P.Predicate("int_gt", 1, P.OP_GT, q("int", 0.97), group="b"),
+        P.Predicate("str_mix", 2, P.OP_HASHMIX, 0.3 * P.MIX_MOD, rounds=24,
+                    static_cost=6.0),
+    ]
+
+
+#: PERF.md §2: device→host syncs allowed in a steady step, by plan and
+#: engine — the torch engine reads its ambiguous count (1), auto reads the
+#: tier arm's tile counters (1), capacity="auto" retunes (1)
+SKIP_SYNC_BUDGET = {
+    ("a", "cuda"): 0, ("a", "torch"): 1,
+    ("b", "cuda"): 1, ("b", "torch"): 2,
+    ("c", "cuda"): 1, ("d", "cuda"): 0, ("d", "torch"): 0,
+    ("bloom6", "cuda"): 0, ("bloom6", "torch"): 1, ("off6", "cuda"): 0,
+}
+
+
+def _host_tiles(step) -> tuple:
+    return tuple(int(t) for t in step["tiles"])
+
+
+def _cluster(torch, cols):
+    """``layout="clustered"`` of one generated batch, on the device: the
+    generator's ``np.lexsort((date, int))`` as two stable sorts (date,
+    then int), so the rows land in the same order."""
+    by_date = cols[:, torch.sort(cols[0], stable=True).indices]
+    return by_date[:, torch.sort(by_date[1], stable=True).indices] \
+        .contiguous()
+
+
+def phase_skip_stream(torch, dev, iid_batches) -> dict:
+    """The skip tier on the clustered paper stream; returns the runs.
+
+    ``iid_batches`` are phase 3's first batches; clustering them on the
+    device gives the stream's ``layout="clustered"`` batches (checked
+    against the host generator on batch 0) without the host's sorts.
+    """
+    from repro_torch.configs.paper_filters import PaperWorkload, filter_chain
+    from repro_torch.core import FilterPlan, build_session
+    from repro_torch.data.stream import gen_batch
+    from repro_torch.kernels.filter_chain import filter_chain as fc
+
+    log(f"== phase 3b: the skip tier ({N_SKIP_BATCHES} x {BATCH_ROWS} rows, "
+        "layout=clustered, regime drift)")
+    wl = PaperWorkload()
+    t0 = time.perf_counter()
+    batches = [_cluster(torch, b) for b in iid_batches]
+    host0 = gen_batch(0, 0, 0, BATCH_ROWS, wl.drift, layout="clustered")
+    check(torch.equal(batches[0].cpu(), torch.from_numpy(host0)),
+          "device clustering != the generator's clustered layout")
+    log(f"  clustered {N_SKIP_BATCHES} batches on the device, batch 0 equal "
+        "to the generator's layout=clustered batch, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cnf = filter_chain("cnf")
+    plans = {   # label → (chain, engines, plan fields)
+        "a": (cnf, ("cuda", "torch"), dict(skip_tier="zonemap")),
+        "b": (cnf, ("cuda", "torch"), dict(skip_tier="zonemap+bloom",
+                                           compact=True, capacity="auto")),
+        "c": (cnf, ("cuda",), dict(skip_tier="auto")),
+        "d": (cnf, ("cuda", "torch"), dict(skip_tier="off")),
+        "bloom6": (_stream_chain6(), ("cuda", "torch"),
+                   dict(skip_tier="zonemap+bloom")),
+        "off6": (_stream_chain6(), ("cuda",), dict(skip_tier="off")),
+    }
+    runs: dict = {"batches": batches}
+    for label, (chain, engines, kw) in plans.items():
+        for engine in engines:
+            plan = FilterPlan(chain, wl.ordering, engine=engine, **kw)
+            fc.reset_launch_counts()
+            session = build_session(plan)
+            sites: set = set()
+            state, steps, syncs, _ = _drive(torch, session, batches,
+                                            record=True, count_syncs=True,
+                                            sync_sites=sites)
+            launches = dict(chain=fc.filter_chain_kernel.launches,
+                            skip=fc.filter_chain_kernel.skip_launches,
+                            gather=fc.compact_gather_kernel.launches,
+                            stats=fc.tile_stats_kernel.launches)
+            timed = build_session(plan)
+            _, _, _, seconds = _drive(torch, timed, batches, record=False,
+                                      count_syncs=False)
+            tiles = [_host_tiles(st) for st in steps]
+            rec = dict(state=state, steps=steps, syncs=syncs, tiles=tiles,
+                       launches=launches, seconds=seconds, plan=plan,
+                       arrays=session.save_state(state)["arrays"])
+            runs[(label, engine)] = rec
+            rows_s = N_SKIP_BATCHES * BATCH_ROWS / seconds
+            log(f"  plan ({label}) {kw} engine={engine}: {rows_s:,.0f} rows/s "
+                f"({seconds * 1e3:.1f} ms for {N_SKIP_BATCHES} steps); syncs "
+                f"per steady step {syncs}; launches {launches}; tiles "
+                f"(pass, fail, ambiguous) per step {tiles[:3]}...; final "
+                f"perm {state.perm.tolist()}")
+            for site in sorted(sites)[:8]:
+                log(f"    sync at {site}")
+            limit = SKIP_SYNC_BUDGET[(label, engine)]
+            check(max(syncs) <= limit,
+                  f"plan ({label}) engine={engine}: {max(syncs)} "
+                  f"device->host syncs in a steady step, limit {limit}")
+            # the launch counters: stats + skip chain on every skip step
+            n = N_SKIP_BATCHES
+            skip_steps = sum(1 for t in tiles if sum(t) > 0)
+            if engine == "torch":
+                check(all(v == 0 for v in launches.values()),
+                      f"torch engine launched kernels {launches}")
+                continue
+            want_skip = {"a": n, "b": n, "c": skip_steps, "d": 0,
+                         "bloom6": n, "off6": 0}[label]
+            check(skip_steps == want_skip,
+                  f"plan ({label}): {skip_steps} skip steps, want "
+                  f"{want_skip}")
+            check(launches["chain"] == n and launches["skip"] == want_skip
+                  and launches["stats"] == want_skip
+                  and launches["gather"] == (n if kw.get("compact") else 0),
+                  f"plan ({label}) cuda launches {launches}: want chain {n}, "
+                  f"skip and stats {want_skip}")
+            if label == "c":
+                check(0 < skip_steps < n, "auto never alternated its arms")
+
+    # exactness: the tier never changes which rows survive
+    base = runs[("d", "cuda")]
+    for key, rec in runs.items():
+        if key == "batches" or key[0] in ("bloom6", "off6"):
+            continue
+        _same_run(torch, rec, base, f"plan {key} vs (d)")
+    _same_run(torch, runs[("bloom6", "cuda")], runs[("off6", "cuda")],
+              "bloom6 cuda vs off6")
+    _same_run(torch, runs[("bloom6", "torch")], runs[("off6", "cuda")],
+              "bloom6 torch vs off6")
+    for label in ("a", "b", "bloom6"):
+        cu, to = runs[(label, "cuda")], runs[(label, "torch")]
+        check(cu["tiles"] == to["tiles"],
+              f"plan ({label}) tile counters differ across engines")
+        check(all(t[1] > 0 for t in cu["tiles"]),
+              f"plan ({label}): a step decided no failing tile")
+    b_cu, b_to = runs[("b", "cuda")], runs[("b", "torch")]
+    for i, (a, b, cols) in enumerate(zip(b_cu["steps"], b_to["steps"],
+                                         batches)):
+        check(a["capacity"] == b["capacity"], f"capacity differs, step {i}")
+        n_kept = int(a["n_kept"])
+        check(n_kept == int(b["n_kept"]) and n_kept > 0,
+              f"n_kept differs or is 0, step {i}")
+        check(torch.equal(a["packed"], b["packed"]),
+              f"packed buffer differs across engines, step {i}")
+        check(torch.equal(a["packed"][:, :n_kept],
+                          cols[:, a["mask"]][:, :n_kept]),
+              f"packed survivors != boolean-mask survivors, step {i}")
+    bloom = runs[("bloom6", "cuda")]["tiles"]
+    zmap_only = _zonemap_fail_tiles(torch, batches)
+    check(sum(t[1] for t in bloom) > zmap_only,
+          f"Bloom proofs decided no tile: {sum(t[1] for t in bloom)} fail "
+          f"tiles with Bloom, {zmap_only} from zone maps alone")
+    log(f"  (a)-(d) agree on masks, n_kept, packed, perm trajectories and "
+        f"save_state arrays; (a) tile counters equal across engines "
+        f"{runs[('a', 'cuda')]['tiles'][:2]}...; six-chain fail tiles "
+        f"{sum(t[1] for t in bloom)} with Bloom vs {zmap_only} from zone "
+        "maps alone")
+    return runs
+
+
+def _zonemap_fail_tiles(torch, batches) -> int:
+    """Fail tiles of the six-chain from zone maps alone over the batches."""
+    from repro_torch.core import pack
+    from repro_torch.kernels.filter_chain import ops
+
+    specs = pack(_stream_chain6(), batches[0].device)
+    return sum(int(ops.skip_triage(b, specs, bloom=False).fail_tiles.sum())
+               for b in batches)
+
+
+def _same_run(torch, got, want, what: str) -> None:
+    for i, (a, b) in enumerate(zip(got["steps"], want["steps"])):
+        check(torch.equal(a["mask"], b["mask"]), f"{what}: mask, step {i}")
+        check(torch.equal(a["perm"], b["perm"])
+              and torch.equal(a["group_perm"], b["group_perm"]),
+              f"{what}: perm trajectory, step {i}")
+    for k, v in want["arrays"].items():
+        w = got["arrays"][k]
+        check(v.dtype == w.dtype and v.shape == w.shape and (v == w).all(),
+              f"{what}: save_state array {k}")
 
 
 # ===================================================================== 4
@@ -480,7 +811,132 @@ def phase_numbers(torch, dev, runs, errs) -> list:
                 f"syncs per steady step max {max(r['syncs'])}")
             _profile_steps(torch, r["session"].plan, runs["batches"],
                            r["seconds"] / N_BATCHES)
+    out += _skip_numbers(torch, dev, runs["skip"], errs, specs)
     return out
+
+
+def _skip_numbers(torch, dev, sk, errs, specs) -> list:
+    """Times of the stats kernel and the skip chain kernel on the clustered
+    batches, and the skip plans end to end."""
+    from repro_torch.kernels.filter_chain import filter_chain as fc
+    from repro_torch.kernels.filter_chain import ops
+
+    out = []
+    batches = sk["batches"][:4]            # 4 x 48 MiB: beyond the 50 MB L2
+    n_cols, rows = batches[0].shape
+    n_sub = rows // fc.STAT_TILE
+    sets = [(b,) for b in batches]
+    ms = _device_ms(torch, fc.tile_stats_kernel, sets, 40)
+    plain = _device_ms(torch, fc.tile_stats_twin, sets, 4)
+    library = _device_ms(
+        torch, lambda b: torch.aminmax(b.view(n_cols, n_sub, fc.STAT_TILE),
+                                       dim=-1), sets, 40)
+    moved = n_cols * rows * 4 + 2 * n_cols * n_sub * 4
+    bound_ms, bound_by = _bound(moved, 2 * n_cols * rows)
+    out.append(dict(name="tile_stats", route="cuda", source=SOURCE,
+                    replaces=f"{TPU_SOURCE}:75",
+                    launches=sk[("a", "cuda")]["launches"]["stats"],
+                    max_abs_err=errs["stats"], ms=ms, plain_ms=plain,
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=library))
+    log(f"  tile_stats: {ms:.4f} ms/launch (bound {bound_ms:.4f} ms by "
+        f"{bound_by}, {moved / 2**20:.2f} MiB; {bound_ms / ms:.1%} of "
+        f"bound); twin {plain:.4f} ms; torch.aminmax {library:.4f} ms")
+
+    # the skip chain kernel with the clustered batches' own triage, in the
+    # order plan (a) ended with
+    perm = sk[("a", "cuda")]["state"].perm.contiguous()
+    metas = [ops._pack_meta(rows, 1000, 0, "row", dev)] * len(batches)
+    decs = []
+    for b in batches:
+        info = ops.skip_triage(b, specs, bloom=False)
+        decs.append((info.pass_tiles.to(torch.int32),
+                     info.fail_tiles.to(torch.int32)))
+    args = [(b, specs, perm, m, d) for b, m, d in zip(batches, metas, decs)]
+    ms = _device_ms(torch, lambda b, s, p, m, d: fc.filter_chain_kernel(
+        b, s, p, m, skip_decisions=d), args, 40)
+    plain = _device_ms(torch, lambda b, s, p, m, d: fc.filter_chain_twin(
+        b, s, p, m, skip_decisions=d), args, 4)
+    no_skip = _device_ms(torch, lambda b, s, p, m, d: fc.filter_chain_kernel(
+        b, s, p, m), args, 40)
+    # what this run's data needs: of each column, the rows pending at the
+    # positions that read it (the most pending at any one of them, a lower
+    # bound on their union) and the sampled rows of decided sub-tiles; the
+    # decisions; the mask. Beside it, every column of every ambiguous
+    # sub-tile, which is what the tier alone leaves to read.
+    pas, fail = decs[0]
+    decided = (pas | fail) > 0
+    sampled = torch.arange(0, rows, 1000, device=dev)
+    n_amb = int((~decided).sum())
+    n_samp_decided = int(decided[sampled // fc.STAT_TILE].sum())
+    _, active, *_ = fc.filter_chain_kernel(batches[0], specs, perm, metas[0],
+                                           skip_decisions=decs[0])
+    chain = [p for p in sk[("a", "cuda")]["plan"].predicates]
+    alive = active.sum(dim=0).tolist()
+    col_rows = {}
+    for a, p in zip(alive, perm.tolist()):
+        col_rows[chain[p].column] = max(col_rows.get(chain[p].column, 0), a)
+    fixed = 2 * 4 * n_sub + rows
+    moved = (sum(col_rows.values()) + n_samp_decided * n_cols) * 4 + fixed
+    moved_tiles = (n_amb * fc.STAT_TILE + n_samp_decided) * n_cols * 4 + fixed
+    ops_skip = sum(a * _ops_per_row(chain[p]) for a, p in
+                   zip(alive, perm.tolist())) \
+        + (rows // 1000 + 1) * sum(_ops_per_row(p) for p in chain)
+    bound_ms, bound_by = _bound(moved, ops_skip)
+    out.append(dict(name="filter_chain[skip]", route="cuda", source=SOURCE,
+                    replaces=f"{TPU_SOURCE}:164",
+                    launches=sk[("a", "cuda")]["launches"]["skip"],
+                    max_abs_err=errs["skip"], ms=ms, plain_ms=plain,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+    log(f"  filter_chain[skip]: {ms:.4f} ms/launch on clustered batches "
+        f"({n_amb} of {n_sub} sub-tiles ambiguous in batch 0; pending rows "
+        f"{[int(a) for a in alive]}; bound {bound_ms:.4f} ms by {bound_by}, "
+        f"{moved / 2**20:.2f} MiB of pending rows, {ops_skip:,.0f} ops; "
+        f"{bound_ms / ms:.1%} of bound; every column of the ambiguous "
+        f"sub-tiles would be {moved_tiles / 2**20:.2f} MiB, "
+        f"{_bound(moved_tiles, ops_skip)[0]:.4f} ms); twin {plain:.4f} ms; "
+        f"the same kernel without decisions {no_skip:.4f} ms")
+
+    for key, r in sk.items():
+        if key == "batches":
+            continue
+        log(f"  end to end plan ({key[0]}) engine={key[1]} "
+            f"skip_tier={r['plan'].skip_tier}: "
+            f"{N_SKIP_BATCHES * BATCH_ROWS / r['seconds']:,.0f} rows/s; "
+            f"syncs per steady step max {max(r['syncs'])}")
+    _paired_rates(torch, sk[("d", "cuda")]["plan"], sk[("a", "cuda")]["plan"],
+                  sk["batches"])
+    for key in (("a", "cuda"), ("a", "torch"), ("d", "cuda"), ("d", "torch")):
+        r = sk[key]
+        log(f"  profile plan ({key[0]}) engine={key[1]}:")
+        _profile_steps(torch, r["plan"], sk["batches"],
+                       r["seconds"] / N_SKIP_BATCHES)
+    return out
+
+
+def _paired_rates(torch, off_plan, on_plan, batches, pairs: int = PAIRS):
+    """End-to-end rows/s of the tier off vs on, in ``pairs`` alternating
+    pairs (off first in even pairs, on first in odd ones) on one card:
+    medians, quartiles, and how many pairs the tier won."""
+    import numpy as np
+
+    from repro_torch.core import build_session
+
+    rates = {"off": [], "on": []}
+    for i in range(pairs):
+        order = (("off", off_plan), ("on", on_plan))
+        for label, plan in (order if i % 2 == 0 else order[::-1]):
+            _, _, _, seconds = _drive(torch, build_session(plan), batches,
+                                      record=False, count_syncs=False)
+            rates[label].append(len(batches) * BATCH_ROWS / seconds)
+    wins = sum(a > b for a, b in zip(rates["on"], rates["off"]))
+    q = {k: np.percentile(v, [25, 50, 75]) for k, v in rates.items()}
+    log(f"  paired end to end, engine={on_plan.engine}, "
+        f"skip_tier={on_plan.skip_tier} vs off, {pairs} pairs: on median "
+        f"{q['on'][1]:,.0f} rows/s (quartiles {q['on'][0]:,.0f} - "
+        f"{q['on'][2]:,.0f}), off median {q['off'][1]:,.0f} (quartiles "
+        f"{q['off'][0]:,.0f} - {q['off'][2]:,.0f}); the tier won {wins} of "
+        f"{pairs} pairs")
 
 
 def _profile_steps(torch, plan, batches, step_s: float, n: int = 4) -> None:
@@ -507,7 +963,7 @@ def _profile_steps(torch, plan, batches, step_s: float, n: int = 4) -> None:
         log("    profiler: no device time recorded")
         return
     per_step = busy_us / n
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     log(f"    profiler: {count / n:.0f} device kernels and {per_step:.1f} "
         f"us of device time per step = {per_step / (step_s * 1e6):.1%} of "
         f"the unprofiled step ({step_s * 1e3:.3f} ms); top: " + "; ".join(

@@ -5,8 +5,9 @@ an engine (``core/engine``) to the ordering math (``core.ordering`` /
 ``core.stats``); ``FilterSession`` (``core.session``) drives it. Every
 tensor stays on the filter's device: the only host-side decisions are the
 epoch boundary, taken from the session's mirror of the deterministic row
-counter, and the ``capacity="auto"`` retune, which reads the device once
-per epoch boundary.
+counter, the ``capacity="auto"`` retune, which reads the device once
+per epoch boundary, and the skip tier's gather width on engines that
+gather (``skip_amb_cap``, one read per step).
 
   plan.adaptive=False  → Spark's default Filter: statement order, the
                          monitor stride advances but nothing re-ranks
@@ -25,6 +26,7 @@ import torch
 
 from repro_torch.core import ordering as ordering_lib
 from repro_torch.core import predicates as pred_lib
+from repro_torch.core import skip_tier as skip_tier_lib
 from repro_torch.core.engine import MonitorSpec, get_engine
 from repro_torch.core.ordering import OrderState
 from repro_torch.core.plan import FilterPlan
@@ -41,8 +43,8 @@ class StepMetrics(NamedTuple):
     epoch: torch.Tensor          # epochs completed so far
     adj_rank: torch.Tensor       # current smoothed GROUP ranks
     n_dropped: torch.Tensor      # survivors lost to capacity overflow
-    n_tiles_pass: torch.Tensor       # skip-tier tile counters (zero here)
-    n_tiles_fail: torch.Tensor
+    n_tiles_pass: torch.Tensor       # skip-tier tile counters (zero when
+    n_tiles_fail: torch.Tensor       # the tier is off for the step)
     n_tiles_ambiguous: torch.Tensor
 
 
@@ -172,6 +174,62 @@ class AdaptiveFilter:
         res, packed, n_kept = self._engine.run_chain_compact(
             columns, self.specs, perm, self._monitor_spec(state),
             capacity=capacity)
+        new_state = self._advance_state(state, res, int(columns.shape[1]),
+                                        fire)
+        n_pass = res.mask.sum(dtype=torch.int32)
+        metrics = self._metrics(res, perm, new_state,
+                                n_dropped=n_pass - n_kept)
+        return new_state, packed, n_kept, res.mask, metrics
+
+    # ------------------------------------------------------------ skip tier
+    def triage(self, columns: torch.Tensor, *, bloom: bool):
+        """The engine's zone-map (+ Bloom) triage of one batch."""
+        return self._engine.triage(columns, self.specs, bloom=bloom)
+
+    def skip_on_mode(self) -> str:
+        """The arm ``skip_tier="auto"`` tunes against "off": Bloom bits only
+        pay when the chain has an equality predicate to consult them."""
+        return "zonemap+bloom" \
+            if any(p.op == pred_lib.OP_EQ for p in self.predicates) \
+            else "zonemap"
+
+    def skip_amb_cap(self, info, n_rows: int) -> int:
+        """Gather width (tiles) for one step — 0 when the engine predicates
+        in-kernel instead of gathering. The one device read of the tier,
+        and only on an engine that gathers."""
+        if not getattr(self._engine, "skip_gathers", False):
+            return 0
+        n_tiles = -(-n_rows // skip_tier_lib.SKIP_TILE)
+        return skip_tier_lib.quantize_amb_cap(int(info.n_ambiguous), n_tiles)
+
+    def _step_skip(self, state: OrderState, columns: torch.Tensor,
+                   pass_tiles, fail_tiles, *, amb_cap: int,
+                   fire: bool | None = None):
+        """``step`` behind the zone-map skip tier.
+
+        ``pass_tiles``/``fail_tiles`` come from ``triage`` on the same
+        batch, ``amb_cap`` from ``skip_amb_cap``. Ordering statistics
+        advance as in ``step``: the monitor lane runs row-level on the
+        full batch.
+        """
+        perm = self._perm(state)
+        skip = skip_tier_lib.SkipInfo(pass_tiles, fail_tiles, None)
+        res = self._engine.run_chain_skip(
+            columns, self.specs, perm, self._monitor_spec(state), skip,
+            amb_cap=amb_cap)
+        new_state = self._advance_state(state, res, int(columns.shape[1]),
+                                        fire)
+        return new_state, res.mask, self._metrics(res, perm, new_state)
+
+    def _step_skip_compact(self, state: OrderState, columns: torch.Tensor,
+                           pass_tiles, fail_tiles, *, amb_cap: int,
+                           capacity: int, fire: bool | None = None):
+        """``_step_compact`` behind the zone-map skip tier."""
+        perm = self._perm(state)
+        skip = skip_tier_lib.SkipInfo(pass_tiles, fail_tiles, None)
+        res, packed, n_kept = self._engine.run_chain_compact_skip(
+            columns, self.specs, perm, self._monitor_spec(state), skip,
+            amb_cap=amb_cap, capacity=capacity)
         new_state = self._advance_state(state, res, int(columns.shape[1]),
                                         fire)
         n_pass = res.mask.sum(dtype=torch.int32)

@@ -4,9 +4,9 @@ Two engines ship in the port and register themselves on import:
 
   torch — masked vectorized evaluation in plain PyTorch (CPU or CUDA);
           the counterpart of ``jnp``
-  cuda  — the hand-written chain and gather kernels; on a CPU tensor their
-          wrappers run the kernels' plain twins. The counterpart of
-          ``pallas``
+  cuda  — the hand-written chain, gather and tile-stats kernels; on a
+          CPU tensor their wrappers run the kernels' plain twins. The
+          counterpart of ``pallas``
 """
 
 from __future__ import annotations

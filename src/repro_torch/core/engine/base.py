@@ -21,14 +21,22 @@ class ChainResult(NamedTuple):
     n_monitored: Any      # f32[] — monitor lane: sampled row count
     monitor_cost: Any     # f32[P] — per-predicate monitor cost contribution
     group_cut_counts: Any  # f32[G] — monitor lane: rows cut by each OR-group
-    # skip-tier counters; zero while the tier is not ported
-    n_tiles_pass: Any = 0
-    n_tiles_fail: Any = 0
-    n_tiles_ambiguous: Any = 0
+    # skip-tier counters (core/skip_tier.py); zero whenever the tier is
+    # off. Work/active counters above charge only ambiguous-tile rows when
+    # the tier resolves tiles — the row-level work actually performed.
+    n_tiles_pass: Any = 0       # i32[] — tiles provably passing every group
+    n_tiles_fail: Any = 0       # i32[] — tiles provably failing some group
+    n_tiles_ambiguous: Any = 0  # i32[] — tiles sent to the row-level chain
 
 
 class SkipInfo(NamedTuple):
-    """Tri-state tile resolution of the skip tier (bool[T] each)."""
+    """Tri-state tile resolution produced by an engine's ``triage``.
+
+    ``pass_tiles``/``fail_tiles`` are bool[T] over the engine's padded
+    128-row tiling of the batch (mutually exclusive; everything else is
+    ambiguous). ``n_ambiguous`` is an i32[] tensor the session reads once
+    per step to size the torch engine's gather width.
+    """
 
     pass_tiles: Any
     fail_tiles: Any
@@ -64,3 +72,20 @@ class FilterEngine(Protocol):
         Returns (ChainResult, packed f32[C, capacity], n_kept i32[]).
         """
         ...
+
+    # --- optional skip-tier surface (core/skip_tier.py) -----------------
+    # Engines with ``supports_skip = True`` additionally implement:
+    #
+    #   triage(columns, specs, *, bloom: bool) -> SkipInfo
+    #       Zone-map (+ optional Bloom) summaries resolved against the
+    #       chain, from the specs' host tuples (no device read).
+    #
+    #   run_chain_skip(columns, specs, perm, monitor, skip, *, amb_cap)
+    #   run_chain_compact_skip(..., amb_cap, capacity, fill)
+    #       ``run_chain``/``run_chain_compact`` with provably-decided tiles
+    #       bypassing the row-level chain. ``amb_cap`` is the gathered
+    #       width in tiles for engines that gather (``skip_gathers =
+    #       True``: torch); the cuda engine predicates in-kernel and
+    #       ignores it. The monitor lane always runs row-level on the full
+    #       batch, so ordering statistics are identical with the tier on
+    #       or off.

@@ -1,15 +1,14 @@
-"""``cuda`` engine: the hand-written chain and gather kernels.
+"""``cuda`` engine: the hand-written chain, gather and tile-stats kernels.
 
 The counterpart of ``repro``'s ``pallas`` engine. On CUDA tensors the
 kernel wrappers launch the kernels (or raise); on CPU tensors they run
-the kernels' plain twins. The skip-tier methods arrive with the
-skip-tier slice.
+the kernels' plain twins.
 """
 
 from __future__ import annotations
 
 from repro_torch.core import engine as engine_lib
-from repro_torch.core.engine.base import ChainResult, MonitorSpec
+from repro_torch.core.engine.base import ChainResult, MonitorSpec, SkipInfo
 
 
 @engine_lib.register("cuda")
@@ -17,7 +16,10 @@ class CudaEngine:
     """Fused per-tile CNF chain with tile short-circuit and in-tile pack."""
 
     traceable = True
-    supports_skip = False
+    supports_skip = True
+    # decided sub-tiles are predicated in-kernel — nothing is gathered, so
+    # the session never reads an ambiguous count for this engine
+    skip_gathers = False
 
     def run_chain(self, columns, specs, perm,
                   monitor: MonitorSpec) -> ChainResult:
@@ -35,6 +37,37 @@ class CudaEngine:
         from repro_torch.kernels.filter_chain import ops as kernel_ops
         return kernel_ops.filter_chain_compact(
             columns, specs, perm,
+            collect_rate=monitor.collect_rate,
+            sample_phase=monitor.sample_phase,
+            capacity=capacity, fill=fill,
+            monitor_mode=monitor.mode)
+
+    # ------------------------------------------------------- skip tier
+    def triage(self, columns, specs, *, bloom: bool) -> SkipInfo:
+        """Stats kernel over the zero-padded batch + zone-map/Bloom
+        resolution."""
+        from repro_torch.kernels.filter_chain import ops as kernel_ops
+        return kernel_ops.skip_triage(columns, specs, bloom=bloom)
+
+    def run_chain_skip(self, columns, specs, perm, monitor: MonitorSpec,
+                       skip: SkipInfo, *, amb_cap: int = 0) -> ChainResult:
+        """The chain kernel with per-sub-tile decisions: decided rows start
+        non-pending (a fully decided tile evaluates no predicate);
+        ``amb_cap`` is ignored — nothing is gathered."""
+        from repro_torch.kernels.filter_chain import ops as kernel_ops
+        return kernel_ops.filter_chain_skip(
+            columns, specs, perm, skip,
+            collect_rate=monitor.collect_rate,
+            sample_phase=monitor.sample_phase,
+            monitor_mode=monitor.mode)
+
+    def run_chain_compact_skip(self, columns, specs, perm,
+                               monitor: MonitorSpec, skip: SkipInfo, *,
+                               amb_cap: int = 0, capacity: int,
+                               fill: float = 0.0):
+        from repro_torch.kernels.filter_chain import ops as kernel_ops
+        return kernel_ops.filter_chain_compact_skip(
+            columns, specs, perm, skip,
             collect_rate=monitor.collect_rate,
             sample_phase=monitor.sample_phase,
             capacity=capacity, fill=fill,

@@ -1,14 +1,14 @@
 """``torch`` engine: masked vectorized evaluation in plain PyTorch.
 
 The counterpart of ``repro``'s ``jnp`` engine; runs on CPU or CUDA
-tensors. The skip-tier methods arrive with the skip-tier slice.
+tensors.
 """
 
 from __future__ import annotations
 
 from repro_torch.core import engine as engine_lib
-from repro_torch.core import filter_exec
-from repro_torch.core.engine.base import ChainResult, MonitorSpec
+from repro_torch.core import filter_exec, skip_tier
+from repro_torch.core.engine.base import ChainResult, MonitorSpec, SkipInfo
 
 
 @engine_lib.register("torch")
@@ -16,7 +16,10 @@ class TorchEngine:
     """Fully vectorized masked CNF chain; exact row-level work counters."""
 
     traceable = True
-    supports_skip = False
+    supports_skip = True
+    # the skip path gathers ambiguous tiles into a buffer sized on the
+    # host, so the session reads the ambiguous count once per step
+    skip_gathers = True
 
     def run_chain(self, columns, specs, perm,
                   monitor: MonitorSpec) -> ChainResult:
@@ -29,6 +32,29 @@ class TorchEngine:
                           *, capacity: int, fill: float = 0.0):
         """Chain + O(R) cumsum-scatter compaction (no sort)."""
         res = self.run_chain(columns, specs, perm, monitor)
+        packed, n_kept = filter_exec.compact_fixed(columns, res.mask,
+                                                   capacity, fill)
+        return res, packed, n_kept
+
+    # ------------------------------------------------------- skip tier
+    def triage(self, columns, specs, *, bloom: bool) -> SkipInfo:
+        """Zone-map (+ Bloom) summaries over NaN-padded 128-row tiles,
+        resolved against the chain."""
+        return skip_tier.triage(columns, specs, bloom=bloom)
+
+    def run_chain_skip(self, columns, specs, perm, monitor: MonitorSpec,
+                       skip: SkipInfo, *, amb_cap: int) -> ChainResult:
+        """Gather ambiguous tiles → row-level chain → scatter the mask
+        back; the monitor lane runs on the full batch."""
+        return skip_tier.run_chain_skip(columns, specs, perm, monitor, skip,
+                                        amb_cap=amb_cap)
+
+    def run_chain_compact_skip(self, columns, specs, perm,
+                               monitor: MonitorSpec, skip: SkipInfo, *,
+                               amb_cap: int, capacity: int,
+                               fill: float = 0.0):
+        res = self.run_chain_skip(columns, specs, perm, monitor, skip,
+                                  amb_cap=amb_cap)
         packed, n_kept = filter_exec.compact_fixed(columns, res.mask,
                                                    capacity, fill)
         return res, packed, n_kept

@@ -5,7 +5,7 @@ PyTorch port of ``repro.core.plan``. The fields, the cross-field rules of
 reference's; the engines are the port's (``"torch"``, ``"cuda"``) and the
 default engine is ``"cuda"``. Combinations whose slice of the port has
 not landed raise ``NotImplementedError`` naming the ``ROADMAP.md`` item:
-``shards > 1``, ``tokenize``, a skip tier, the ``numpy`` engine and
+``shards > 1``, ``tokenize``, the ``numpy`` engine and
 ``cost_mode="measured"``.
 
 ``fingerprint()`` hashes the semantic identity of the adaptive state
@@ -26,12 +26,11 @@ from repro_torch.core.engine import get_engine
 from repro_torch.core.ordering import OrderingConfig
 from repro_torch.core.predicates import Predicate
 from repro_torch.core.scope import EXCHANGE_MODES, scope_from_str
+from repro_torch.core.skip_tier import SKIP_TIER_MODES
 
 #: vocab ceiling of the device tokenizer (as in ``repro``)
 MAX_DEVICE_VOCAB = 1 << 24
 
-#: the skip-tier modes of ``repro.core.skip_tier``
-SKIP_TIER_MODES = ("off", "zonemap", "zonemap+bloom", "auto")
 
 def validate_combo(*, scope: str, cost_mode: str, backend: str,
                    compact_output: bool, compact_capacity,
@@ -133,9 +132,6 @@ def _reject_unported(plan: "FilterPlan") -> None:
         todo.append("shards > 1 (ROADMAP.md queue 1 item 10, sharding)")
     if plan.tokenize is not None:
         todo.append("tokenize (ROADMAP.md queue 1 item 5, device tokenize)")
-    if plan.skip_tier in SKIP_TIER_MODES and plan.skip_tier != "off":
-        todo.append(f"skip_tier={plan.skip_tier!r} (ROADMAP.md queue 1 "
-                    "item 6, skip tier)")
     if plan.engine == "numpy":
         todo.append("engine='numpy' (ROADMAP.md queue 1 item 12, host "
                     "reference paths)")

@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
+import numpy as np
 import torch
 
 OP_GT = 0
@@ -75,9 +76,11 @@ class PredicateSpecs:
     """Structure-of-arrays packing of a chain (the kernel ABI).
 
     The tensors live on one device; ``group`` (dense group id per
-    predicate) and ``static`` ((column, op, rounds) per predicate) are
-    host tuples, so evaluation and group-shaped control flow dispatch in
-    Python without reading the device.
+    predicate), ``static`` ((column, op, rounds) per predicate) and
+    ``thresholds`` ((t1, t2) per predicate, the f32 values as Python
+    floats) are host tuples, so evaluation, group-shaped control flow and
+    the skip tier's tile resolution dispatch in Python without reading the
+    device.
     """
 
     column: torch.Tensor       # i32[P]
@@ -89,6 +92,7 @@ class PredicateSpecs:
     group_ids: torch.Tensor    # i32[P] dense group id per predicate
     group: tuple = ()          # static dense group id per predicate; () → flat
     static: tuple = ()         # static (column, op, rounds) per predicate
+    thresholds: tuple = ()     # static f32 (t1, t2) per predicate
 
     @property
     def n(self) -> int:
@@ -165,6 +169,8 @@ def pack(predicates: Sequence[Predicate], device="cpu") -> PredicateSpecs:
         group_ids=arr(list(groups), torch.int32),
         group=groups,
         static=tuple((p.column, p.op, p.rounds) for p in predicates),
+        thresholds=tuple((float(np.float32(p.t1)), float(np.float32(p.t2)))
+                         for p in predicates),
     )
 
 

@@ -11,8 +11,11 @@ compaction, metrics) with host accessors that copy on demand. A step
 reads nothing from the device: the epoch boundary comes from a host
 mirror of ``rows_into_epoch`` (it advances by the static batch width), so
 the only device→host copies of a step are the ``capacity="auto"`` retune
-after a boundary and the one re-anchoring read when a state arrives that
-this session did not produce.
+after a boundary, the one re-anchoring read when a state arrives that
+this session did not produce, and the skip tier's: the ambiguous-tile
+count that sizes the ``torch`` engine's gather (none on ``cuda``), and
+the ``skip_tier="auto"`` tuner's wall clock (a ``synchronize`` plus one
+read of the tile counters on the tier's arm).
 
 Checkpoints are the reference's schema v2 envelope (plan fingerprint,
 shard layout, crc32 over the state arrays) and load v1 raw-array blobs;
@@ -30,6 +33,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import skip_tier as skip_tier_lib
 from repro_torch.core.adaptive_filter import AdaptiveFilter, StepMetrics
 from repro_torch.core.ordering import OrderState
 from repro_torch.core.plan import FilterPlan
@@ -231,6 +235,8 @@ class FilterSession:
         # host mirror of rows_into_epoch and the tensor it mirrors
         self._rows_host = 0
         self._rows_ref = None
+        # skip_tier="auto": the online us_per_row tuner (lazy; host-owned)
+        self._skip_tuner: skip_tier_lib.SkipTierTuner | None = None
 
     def _anchor(self, state: OrderState, rows: int) -> None:
         self._rows_host = rows
@@ -241,14 +247,40 @@ class FilterSession:
         self._anchor(state, 0)
         return state
 
+    # ----------------------------------------------------------- skip tier
+    def _skip_step_mode(self) -> str:
+        """The skip-tier arm for the CURRENT step ("off" disables it).
+
+        Fixed tiers pass through; "auto" asks the online tuner
+        (``skip_tier.SkipTierTuner``) which arm to run.
+        """
+        tier = self.plan.skip_tier
+        if tier == "off":
+            return "off"
+        if tier != "auto":
+            return tier
+        if self._skip_tuner is None:
+            self._skip_tuner = skip_tier_lib.SkipTierTuner(
+                self.filter.skip_on_mode())
+        return self._skip_tuner.choose()
+
+    @property
+    def skip_tier_active(self) -> str:
+        """The arm a step would run right now (bench/telemetry hook)."""
+        if self.plan.skip_tier != "auto":
+            return self.plan.skip_tier
+        return self._skip_tuner.active_mode if self._skip_tuner else "auto"
+
     # ---------------------------------------------------------------- step
     def step(self, state: OrderState, batch) -> tuple[OrderState, StepResult]:
         """One micro-batch through the compiled plan.
 
         ``batch``: f32[C, R], a tensor on the session's device (or host
-        data, copied there). Runs the chain (+ compaction), fires the epoch
-        boundary the host mirror says is due (the deferred exchange, for
-        deferred plans) and retunes ``capacity="auto"`` after a boundary.
+        data, copied there). Runs the skip-tier triage (when the plan's
+        tier is on for this step), the chain (+ compaction), fires the
+        epoch boundary the host mirror says is due (the deferred exchange,
+        for deferred plans) and retunes ``capacity="auto"`` after a
+        boundary.
         """
         t_gate = time.perf_counter()
         cols = torch.as_tensor(batch, dtype=torch.float32, device=self.device)
@@ -260,12 +292,31 @@ class FilterSession:
         fire, rows = f.rows_after(self._rows_host, n_rows)
         prev = state
         packed = n_kept = cap = None
+        skip_mode = self._skip_step_mode()
+        t0 = time.perf_counter()
+        info = None
+        if skip_mode != "off":
+            # the torch engine reads the ambiguous count here to size its
+            # gather; the cuda engine predicates in-kernel and reads nothing
+            info = f.triage(cols, bloom=skip_mode == "zonemap+bloom")
+            amb_cap = f.skip_amb_cap(info, n_rows)
         if self.plan.compact:
             cap = f.resolve_capacity(n_rows)
-            state, packed, n_kept, mask, metrics = f._step_compact(
-                state, cols, capacity=cap, fire=fire)
+            if info is not None:
+                state, packed, n_kept, mask, metrics = f._step_skip_compact(
+                    state, cols, info.pass_tiles, info.fail_tiles,
+                    amb_cap=amb_cap, capacity=cap, fire=fire)
+            else:
+                state, packed, n_kept, mask, metrics = f._step_compact(
+                    state, cols, capacity=cap, fire=fire)
+        elif info is not None:
+            state, mask, metrics = f._step_skip(
+                state, cols, info.pass_tiles, info.fail_tiles,
+                amb_cap=amb_cap, fire=fire)
         else:
             state, mask, metrics = f.step(state, cols, fire=fire)
+        if self.plan.skip_tier == "auto":
+            self._observe_skip_arm(skip_mode, metrics, t0, n_rows)
         if f.exchange_deferred \
                 and rows >= self.plan.ordering.calculate_rate:
             state = f.exchange(state)
@@ -278,6 +329,26 @@ class FilterSession:
         return state, StepResult(mask, packed, n_kept, None, None, metrics,
                                  cap, warn_cell=[],
                                  gate_s=time.perf_counter() - t_gate)
+
+    def _observe_skip_arm(self, skip_mode: str, metrics: StepMetrics,
+                          t0: float, n_rows: int) -> None:
+        """Feed the skip_tier="auto" tuner one honest per-arm wall clock.
+
+        Both arms pay the same ``synchronize`` (``block_until_ready`` in
+        ``repro``); the tier's arm also reads its tile counters (one copy)
+        for the ambiguous fraction behind the structural shutoff.
+        """
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dt = time.perf_counter() - t0
+        ambig_frac = None
+        if skip_mode != "off":
+            n_amb, n_pass, n_fail = _np(torch.stack([
+                metrics.n_tiles_ambiguous, metrics.n_tiles_pass,
+                metrics.n_tiles_fail]).to(torch.float64)).tolist()
+            ambig_frac = n_amb / max(n_amb + n_pass + n_fail, 1.0)
+        self._skip_tuner.observe(skip_mode, dt * 1e6 / max(n_rows, 1),
+                                 ambig_frac)
 
     def _sync_rows_into_epoch(self, state: OrderState) -> int:
         """Re-anchor the host row counter from the device state — only for

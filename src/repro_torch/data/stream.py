@@ -172,7 +172,9 @@ def gen_batch(seed: int, batch_index: int, row_start: int, n_rows: int,
             + s_shift * STR_MOD) % STR_MOD
     cols = np.stack([date, intc, strh]).astype(np.float32)
     order = _layout_order(cols, layout, rng)
-    return cols if order is None else cols[:, order]
+    # np.take keeps the batch C-contiguous (``cols[:, order]`` would hand
+    # the engines a Fortran-ordered array, copied again on every step)
+    return cols if order is None else np.take(cols, order, axis=1)
 
 
 class LogStream:

@@ -1,5 +1,5 @@
-// Fused adaptive CNF filter chain and exact-count survivor gather for
-// Hopper (sm_90a), exposed through a plain C interface (loaded with ctypes).
+// Fused adaptive CNF filter chain, exact-count survivor gather and zone-map
+// statistics for Hopper (sm_90a), exposed through a plain C interface (loaded with ctypes).
 //
 // ---------------------------------------------------------------------------
 // chain_kernel  replaces  _kernel (skip=False), launched by
@@ -32,9 +32,20 @@
 //   a column is read once per predicate that touches it and the row state
 //   (mask, OR accumulator) never leaves registers. A predicate is evaluated
 //   only on the rows still pending at its position (row-level laziness:
-//   the outputs equal the Pallas kernel's, which evaluates whole tiles).
+//   the outputs equal the Pallas kernel's, which evaluates whole tiles),
+//   and a thread none of whose rows is pending loads nothing, so settled
+//   and decided rows cost no column bytes beyond their 32-byte sector.
 //   Counts use warp reductions plus shared-memory integer atomics, so
 //   every count is exact and independent of thread scheduling.
+//
+//   With skip decisions (`pass` / `fail` != nullptr), it replaces
+//   _kernel (skip=True) as well (filter_chain.py:164-199, :203-204,
+//   :231-235): one i32 pass flag and one fail flag per 128-row sub-tile
+//   from the zone-map triage. Rows of a decided sub-tile start
+//   non-pending, so `active` counts only ambiguous rows and a fully
+//   decided tile takes the block-uniform short-circuit; after the chain,
+//   mask |= pass & valid. The monitor lane and the pack are unchanged
+//   (pass rows reach the pack through the mask).
 //
 // compact_gather_kernel  replaces  _gather_kernel, launched by
 //               compact_gather_pallas, filter_chain.py:372 and :396.
@@ -48,6 +59,21 @@
 //
 //   Bound: survivor bytes read plus C*cap*4 bytes written; coalesced
 //   copies along each column row.
+//
+// tile_stats_kernel  replaces  _stats_kernel, launched by
+//               tile_stats_pallas, filter_chain.py:75 and :92.
+//
+//   Per-column min and max over every 128-row sub-tile of the zero-padded
+//   f32[C, Rp], written straight to [C, Rp/128] (the TPU's [T, C, sub]
+//   block layout and transpose exist only for Mosaic's lane rule). Both
+//   propagate NaN, as jnp.min / jnp.max do: fminf / fmaxf drop NaN, and a
+//   dropped NaN would fire tile proofs the reference never fires.
+//
+//   Bound: device memory, C*Rp*4 bytes read and C*Rp/16 written (48 MiB +
+//   0.75 MiB on the paper stream, ~15 us at 3.35 TB/s). One warp per 4
+//   consecutive sub-tiles: each lane issues its four 16-byte loads before
+//   any reduction (32 lanes x float4 = one sub-tile per load), then a
+//   shuffle reduction per sub-tile.
 //
 // Exactness: HASHMIX computes y*MUL + ADD and y - floor(y/MOD)*MOD with
 // separately rounded __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn, so no
@@ -67,6 +93,8 @@ constexpr int kThreads = 256;
 constexpr int kRows = 8;                 // rows per thread
 constexpr int kTile = kThreads * kRows;  // 2048: the logical tile
 constexpr int kMaxPreds = 32;  // predicate sets are 32-bit masks
+constexpr int kStatTile = 128;           // zone-map sub-tile (STAT_TILE)
+constexpr int kStatPerWarp = 4;          // sub-tiles reduced by one warp
 
 constexpr float kMixMul = 1.0000019073486328f;
 constexpr float kMixAdd = 0.31830987334251404f;
@@ -119,7 +147,8 @@ __global__ void __launch_bounds__(kThreads) chain_kernel(
     const int* __restrict__ meta, int8_t* __restrict__ mask_out,
     float* __restrict__ active, float* __restrict__ cut,
     float* __restrict__ gcut, float* __restrict__ nmon,
-    float* __restrict__ packed, int* __restrict__ cnt, float fill) {
+    float* __restrict__ packed, int* __restrict__ cnt, float fill,
+    const int* __restrict__ pass_t, const int* __restrict__ fail_t) {
   using BlockScan = cub::BlockScan<int, kThreads>;
 
   __shared__ int s_col[kMaxPreds], s_op[kMaxPreds], s_rounds[kMaxPreds];
@@ -163,11 +192,18 @@ __global__ void __launch_bounds__(kThreads) chain_kernel(
   const long long tile_base = static_cast<long long>(t) * kTile;
   const int lane0 = tid * kRows;
 
+  // skip decisions: a thread's kRows rows lie in one 128-row sub-tile
+  bool pass = false, decided = false;
+  if (pass_t != nullptr) {
+    const long long sub = (tile_base + lane0) / kStatTile;
+    pass = pass_t[sub] > 0;
+    decided = pass || fail_t[sub] > 0;
+  }
   bool valid[kRows], m[kRows], gor[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     valid[r] = tile_base + lane0 + r < n_rows;
-    m[r] = valid[r];
+    m[r] = valid[r] && !decided;
     gor[r] = false;
   }
   __syncthreads();
@@ -191,8 +227,9 @@ __global__ void __launch_bounds__(kThreads) chain_kernel(
     if (tid == 0) active[static_cast<long long>(t) * n_preds + k] =
         static_cast<float>(alive);
     bool res[kRows];
-    if (alive > 0) {  // block-uniform: the tile short-circuit
-      float x[kRows];
+    if (alive > 0 && local > 0) {  // alive: block-uniform tile short-circuit;
+      float x[kRows];              // local: a thread with no pending row
+                                   // (settled or decided) loads nothing
       load_rows(cols + s_col[p] * row_stride + tile_base + lane0, x);
       const int o = s_op[p], rn = s_rounds[p];
       const float a = s_t1[p], b = s_t2[p];
@@ -208,6 +245,11 @@ __global__ void __launch_bounds__(kThreads) chain_kernel(
       gor[r] = is_first ? res[r] : (gor[r] || res[r]);
       if (closes) m[r] = m[r] && gor[r];
     }
+  }
+
+  if (pass) {  // provably passing sub-tile: its valid rows survive
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) m[r] = m[r] || valid[r];
   }
 
   int8_t* mrow = mask_out + tile_base + lane0;
@@ -280,6 +322,46 @@ __global__ void __launch_bounds__(kThreads) chain_kernel(
         static_cast<float>(s_gcut[tid]);
 }
 
+// NaN-propagating min / max (jnp.min / jnp.max semantics).
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+// Sub-tile g of the flat contiguous [C, Rp] input is floats
+// [g*128, g*128 + 128) (Rp % 128 == 0), and its summary lands at [C, Rp/128]
+// flat index g. Warp w reduces sub-tiles [w*kStatPerWarp, +kStatPerWarp).
+__global__ void __launch_bounds__(kThreads) tile_stats_kernel(
+    const float* __restrict__ cols, long long n_sub, float* __restrict__ mins,
+    float* __restrict__ maxs) {
+  const int lane = threadIdx.x & 31;
+  const long long warp =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  const long long first = warp * kStatPerWarp;
+  if (first >= n_sub) return;  // warp-uniform; n_sub % kStatPerWarp == 0
+  float4 q[kStatPerWarp];
+#pragma unroll
+  for (int j = 0; j < kStatPerWarp; ++j)
+    q[j] = reinterpret_cast<const float4*>(cols + (first + j) * kStatTile)
+        [lane];
+#pragma unroll
+  for (int j = 0; j < kStatPerWarp; ++j) {
+    float mn = nan_min(nan_min(q[j].x, q[j].y), nan_min(q[j].z, q[j].w));
+    float mx = nan_max(nan_max(q[j].x, q[j].y), nan_max(q[j].z, q[j].w));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      mn = nan_min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+      mx = nan_max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    }
+    if (lane == 0) {
+      mins[first + j] = mn;
+      maxs[first + j] = mx;
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads) compact_gather_kernel(
     const float* __restrict__ packed, int n_cols, long long row_stride,
     int tile, int n_tiles, const int* __restrict__ offsets,
@@ -317,15 +399,30 @@ extern "C" int filter_chain_launch(
     const int* rounds, const int* perm, const int* group, int n_preds,
     int n_groups, const int* meta, int8_t* mask, float* active, float* cut,
     float* gcut, float* nmon, float* packed, int* cnt, float fill,
-    void* stream) {
+    const int* pass_t, const int* fail_t, void* stream) {
   if (tile != kTile || n_preds < 1 || n_preds > kMaxPreds || n_groups < 1 ||
-      n_groups > n_preds || n_tiles < 1)
+      n_groups > n_preds || n_tiles < 1 ||
+      (pass_t == nullptr) != (fail_t == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(n_tiles), block(kThreads);
   chain_kernel<<<grid, block, 0, s>>>(
       cols, n_cols, row_stride, col, op, t1, t2, rounds, perm, group, n_preds,
-      n_groups, meta, mask, active, cut, gcut, nmon, packed, cnt, fill);
+      n_groups, meta, mask, active, cut, gcut, nmon, packed, cnt, fill,
+      pass_t, fail_t);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tile_stats_launch(const float* cols, long long n_sub,
+                                 float* mins, float* maxs, void* stream) {
+  if (n_sub < 1 || n_sub % kStatPerWarp)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr int kWarps = kThreads / 32;
+  const long long warps = n_sub / kStatPerWarp;
+  const long long blocks = (warps + kWarps - 1) / kWarps;
+  tile_stats_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      cols, n_sub, mins, maxs);
   return static_cast<int>(cudaGetLastError());
 }
 

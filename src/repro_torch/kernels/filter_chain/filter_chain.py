@@ -1,7 +1,9 @@
-"""The fused filter-chain and gather kernels: build, launch, plain twins.
+"""The fused filter-chain, gather and tile-stats kernels: build, launch,
+plain twins.
 
 Counterpart of ``repro.kernels.filter_chain.filter_chain`` (the Pallas
-kernels ``_kernel`` and ``_gather_kernel``). The kernels are CUDA C++ for
+kernels ``_kernel`` with and without skip decisions, ``_gather_kernel``
+and ``_stats_kernel``). The kernels are CUDA C++ for
 ``sm_90a`` in ``csrc/filter_chain.cu`` with a plain C interface; this
 module compiles that file with ``nvcc`` on first use into
 ``build/repro_torch_kernels/`` at the checkout root and binds it with
@@ -9,11 +11,14 @@ module compiles that file with ``nvcc`` on first use into
 
 Each kernel has a wrapper and a twin:
 
-  * the wrapper (``filter_chain_kernel``, ``compact_gather_kernel``)
-    launches the kernel on a CUDA tensor, on PyTorch's current stream, and
-    counts the launch in its ``launches`` attribute; on a CPU tensor it
-    runs the twin instead, and on any other device it raises;
-  * the twin (``filter_chain_twin``, ``compact_gather_twin``) is plain
+  * the wrapper (``filter_chain_kernel``, ``compact_gather_kernel``,
+    ``tile_stats_kernel``) launches the kernel on a CUDA tensor, on
+    PyTorch's current stream, and counts the launch in its ``launches``
+    attribute (``filter_chain_kernel.skip_launches`` also counts its
+    launches with skip decisions); on a CPU tensor it runs the twin
+    instead, and on any other device it raises;
+  * the twin (``filter_chain_twin``, ``compact_gather_twin``,
+    ``tile_stats_twin``) is plain
     PyTorch with the kernel's exact contract — the same tile split, the
     same per-tile counters, the same in-tile pack — written over a
     ``[C, T, tile]`` view of the padded batch, so it runs at full width on
@@ -37,6 +42,7 @@ from repro_torch.core import predicates as pred_lib
 DEFAULT_TILE = 2048     # logical rows per tile (= one CTA); the only tile
                         # the kernels are built for (kTile in the source)
 MAX_PREDS = 32          # the kernel keeps predicate sets in 32-bit masks
+STAT_TILE = 128         # rows per zone-map sub-tile (kStatTile)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "filter_chain.cu"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -73,8 +79,11 @@ class _Library:
             ptr, ptr, ptr, ptr, ptr, ptr, ptr,       # specs, perm, groups
             i32, i32, ptr,                           # P, G, meta
             ptr, ptr, ptr, ptr, ptr, ptr, ptr,       # outputs
-            f32, ptr]                                # fill, stream
+            f32, ptr, ptr, ptr]                      # fill, pass, fail,
+                                                     # stream
         lib.filter_chain_launch.restype = i32
+        lib.tile_stats_launch.argtypes = [ptr, i64, ptr, ptr, ptr]
+        lib.tile_stats_launch.restype = i32
         lib.compact_gather_launch.argtypes = [
             ptr, i32, i64, i32, i32, ptr, ptr, i32, f32, ptr, ptr]
         lib.compact_gather_launch.restype = i32
@@ -134,19 +143,23 @@ def _stream_ptr(device) -> int:
 # ================================================================ chain
 def filter_chain_kernel(columns: torch.Tensor, specs, perm: torch.Tensor,
                         meta: torch.Tensor, *, compact: bool = False,
-                        fill: float = 0.0):
+                        fill: float = 0.0, skip_decisions=None):
     """Fused CNF chain over padded f32[C, Rp] (Rp % DEFAULT_TILE == 0).
 
     ``meta`` is i32[4] = (n_rows, collect_rate, sample_phase, mode) on the
     columns' device; ``perm`` i32[P]. Returns (mask i8[1, Rp], active
     f32[T, P], cut f32[T, P], gcut f32[T, G], nmon f32[T, 1]) and, with
     ``compact=True``, also (packed f32[C, Rp], cnt i32[T, 1]) — the
-    contract of ``filter_chain_pallas`` with ``skip=False``.
+    contract of ``filter_chain_pallas``. ``skip_decisions`` is None or
+    (pass i32[Rp/128], fail i32[Rp/128]) from the zone-map triage: rows of
+    a sub-tile with a flag > 0 start non-pending, and valid rows of pass
+    sub-tiles survive.
     """
     dev = columns.device
     if dev.type == "cpu":
         return filter_chain_twin(columns, specs, perm, meta,
-                                 compact=compact, fill=fill)
+                                 compact=compact, fill=fill,
+                                 skip_decisions=skip_decisions)
     if dev.type != "cuda":
         raise ValueError(f"filter_chain_kernel: unsupported device {dev}")
     n_cols, n_rows_p = columns.shape
@@ -168,6 +181,15 @@ def filter_chain_kernel(columns: torch.Tensor, specs, perm: torch.Tensor,
     _check_cuda("meta", meta, torch.int32, dev)
     if perm.shape != (n_preds,) or meta.shape != (4,):
         raise ValueError("perm must be i32[P] and meta i32[4]")
+    pass_ptr = fail_ptr = None
+    if skip_decisions is not None:
+        for name, d in zip(("pass", "fail"), skip_decisions):
+            _check_cuda(name, d, torch.int32, dev)
+            if d.shape != (n_rows_p // STAT_TILE,):
+                raise ValueError(f"{name} decisions must be i32[Rp/"
+                                 f"{STAT_TILE}]")
+        pass_ptr = skip_decisions[0].data_ptr()
+        fail_ptr = skip_decisions[1].data_ptr()
 
     n_tiles = n_rows_p // tile
     mask = torch.empty((1, n_rows_p), dtype=torch.int8, device=dev)
@@ -188,20 +210,25 @@ def filter_chain_kernel(columns: torch.Tensor, specs, perm: torch.Tensor,
         specs.t2.data_ptr(), specs.rounds.data_ptr(), perm.data_ptr(),
         specs.group_ids.data_ptr(), n_preds, n_groups, meta.data_ptr(),
         mask.data_ptr(), active.data_ptr(), cut.data_ptr(), gcut.data_ptr(),
-        nmon.data_ptr(), packed_ptr, cnt_ptr, fill, _stream_ptr(dev))
+        nmon.data_ptr(), packed_ptr, cnt_ptr, fill, pass_ptr, fail_ptr,
+        _stream_ptr(dev))
     if err:
         raise RuntimeError(f"filter_chain kernel launch failed: CUDA error "
                            f"{err}")
     filter_chain_kernel.launches += 1
+    if skip_decisions is not None:
+        filter_chain_kernel.skip_launches += 1
     return tuple(outs)
 
 
 filter_chain_kernel.launches = 0
+filter_chain_kernel.skip_launches = 0
 
 
 def filter_chain_twin(columns: torch.Tensor, specs, perm: torch.Tensor,
                       meta: torch.Tensor, *, tile: int = DEFAULT_TILE,
-                      compact: bool = False, fill: float = 0.0):
+                      compact: bool = False, fill: float = 0.0,
+                      skip_decisions=None):
     """Plain-PyTorch twin of ``filter_chain_kernel`` (same contract).
 
     Runs every tile at once over a [C, T, tile] view; reads nothing on the
@@ -226,6 +253,12 @@ def filter_chain_twin(columns: torch.Tensor, specs, perm: torch.Tensor,
     chain_outcomes = outcomes.index_select(0, perm)
 
     mask = valid
+    if skip_decisions is not None:
+        # per-128-row decisions as lanes; decided rows start non-pending
+        pass_lane, fail_lane = (
+            (d.to(dev).reshape(n_tiles, tile // STAT_TILE) > 0)
+            .repeat_interleave(STAT_TILE, dim=1) for d in skip_decisions)
+        mask = valid & ~(pass_lane | fail_lane)
     group_or = torch.zeros_like(valid)
     active = []
     for k in range(specs.n):
@@ -241,6 +274,8 @@ def filter_chain_twin(columns: torch.Tensor, specs, perm: torch.Tensor,
             else torch.where(is_first, res, group_or | res)
         mask = mask & group_or if closes is True \
             else torch.where(closes, mask & group_or, mask)
+    if skip_decisions is not None:
+        mask = mask | (pass_lane & valid)
     out_mask = mask.reshape(1, n_rows_p).to(torch.int8)
     out_active = torch.stack(active, dim=1)
 
@@ -337,7 +372,56 @@ def compact_gather_twin(packed_tiles: torch.Tensor, offsets: torch.Tensor,
     return out[:, :capacity]
 
 
+# ================================================================ stats
+def tile_stats_kernel(columns: torch.Tensor):
+    """Zone maps of padded f32[C, Rp] (Rp % DEFAULT_TILE == 0).
+
+    Returns (mins f32[C, Rp/128], maxs f32[C, Rp/128]): the min and max of
+    every column over every 128-row sub-tile, NaN wherever the sub-tile
+    holds a NaN — the contract of ``tile_stats_pallas``.
+    """
+    dev = columns.device
+    if dev.type == "cpu":
+        return tile_stats_twin(columns)
+    if dev.type != "cuda":
+        raise ValueError(f"tile_stats_kernel: unsupported device {dev}")
+    n_cols, n_rows_p = columns.shape
+    if n_rows_p == 0 or n_rows_p % DEFAULT_TILE:
+        raise ValueError(f"padded rows {n_rows_p} not a positive multiple "
+                         f"of tile {DEFAULT_TILE}")
+    _check_cuda("columns", columns, torch.float32, dev)
+    if columns.data_ptr() % 16:
+        raise ValueError("columns must be 16-byte aligned")
+    n_sub = n_rows_p // STAT_TILE
+    mins = torch.empty((n_cols, n_sub), dtype=torch.float32, device=dev)
+    maxs = torch.empty_like(mins)
+    err = build().lib.tile_stats_launch(
+        columns.data_ptr(), n_cols * n_sub, mins.data_ptr(), maxs.data_ptr(),
+        _stream_ptr(dev))
+    if err:
+        raise RuntimeError(f"tile_stats kernel launch failed: CUDA error "
+                           f"{err}")
+    tile_stats_kernel.launches += 1
+    return mins, maxs
+
+
+tile_stats_kernel.launches = 0
+
+
+def tile_stats_twin(columns: torch.Tensor, *, tile: int = DEFAULT_TILE):
+    """Plain-PyTorch twin of ``tile_stats_kernel``: ``amin`` / ``amax``
+    (both propagate NaN) over a [C, Rp/128, 128] view. ``tile`` is only
+    checked, as ``tile_stats_pallas`` checks it."""
+    n_cols, n_rows_p = columns.shape
+    if n_rows_p % tile:
+        raise ValueError(f"padded rows {n_rows_p} not a multiple of {tile}")
+    sub = columns.reshape(n_cols, n_rows_p // STAT_TILE, STAT_TILE)
+    return sub.amin(dim=2), sub.amax(dim=2)
+
+
 def reset_launch_counts() -> None:
-    """Set both wrappers' launch counters to 0."""
+    """Set every wrapper's launch counters to 0."""
     filter_chain_kernel.launches = 0
+    filter_chain_kernel.skip_launches = 0
     compact_gather_kernel.launches = 0
+    tile_stats_kernel.launches = 0

@@ -5,8 +5,9 @@ tile, packs the meta scalars on the device, launches the kernels through
 their wrappers (which run the plain twins on CPU tensors) and reduces the
 per-tile counters into the engine-wide ``ChainResult``. The O(n_tiles)
 exclusive cumsum of the per-tile survivor counts between the two
-compacting launches stays PyTorch glue, as it is XLA glue in ``repro``.
-Nothing here reads a device value on the host.
+compacting launches stays PyTorch glue, as it is XLA glue in ``repro``;
+so do the skip tier's Bloom bitmap and tile resolution around the stats
+kernel (``skip_triage``). Nothing here reads a device value on the host.
 """
 
 from __future__ import annotations
@@ -14,10 +15,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.engine.base import ChainResult
+from repro_torch.core import skip_tier
+from repro_torch.core.engine.base import ChainResult, SkipInfo
 from repro_torch.core.predicates import PredicateSpecs
 from repro_torch.kernels.filter_chain.filter_chain import (
-    DEFAULT_TILE, compact_gather_kernel, filter_chain_kernel)
+    DEFAULT_TILE, STAT_TILE, compact_gather_kernel, filter_chain_kernel,
+    tile_stats_kernel)
 
 MONITOR_MODES = ("row", "block")
 
@@ -45,12 +48,17 @@ def _pad_cols(columns: torch.Tensor, tile: int) -> torch.Tensor:
 
 
 def _reduce_result(mask_i8, active, cut, gcut, nmon, specs: PredicateSpecs,
-                   perm, n_rows: int) -> ChainResult:
+                   perm, n_rows: int,
+                   skip: SkipInfo | None = None) -> ChainResult:
     active_before = active.sum(dim=0)                        # f32[P]
     cost_in_order = specs.static_cost.index_select(0, perm.to(torch.int64))
     work = (active_before * cost_in_order).sum()
     n_monitored = nmon.sum()
-    zero = torch.zeros((), dtype=torch.int32, device=mask_i8.device)
+    if skip is None:
+        n_pass_t = n_fail_t = n_amb_t = torch.zeros(
+            (), dtype=torch.int32, device=mask_i8.device)
+    else:
+        n_pass_t, n_fail_t, n_amb_t = skip_tier.tile_counters(skip)
     return ChainResult(
         mask=mask_i8[0, :n_rows].to(torch.bool),
         work_units=work,
@@ -59,14 +67,14 @@ def _reduce_result(mask_i8, active, cut, gcut, nmon, specs: PredicateSpecs,
         n_monitored=n_monitored,
         monitor_cost=specs.static_cost * n_monitored,
         group_cut_counts=gcut.sum(dim=0),
-        n_tiles_pass=zero,
-        n_tiles_fail=zero,
-        n_tiles_ambiguous=zero,
+        n_tiles_pass=n_pass_t,
+        n_tiles_fail=n_fail_t,
+        n_tiles_ambiguous=n_amb_t,
     )
 
 
 def _launch_chain(columns, specs, perm, collect_rate, sample_phase,
-                  monitor_mode, compact, fill):
+                  monitor_mode, compact, fill, skip=None):
     if monitor_mode not in MONITOR_MODES:
         raise ValueError(monitor_mode)
     n_rows = int(columns.shape[1])
@@ -74,9 +82,46 @@ def _launch_chain(columns, specs, perm, collect_rate, sample_phase,
     meta = _pack_meta(n_rows, collect_rate, sample_phase, monitor_mode,
                       columns.device)
     perm = perm.to(device=columns.device, dtype=torch.int32).contiguous()
+    decisions = None if skip is None else tuple(
+        t.to(torch.int32).contiguous()
+        for t in (skip.pass_tiles, skip.fail_tiles))
     outs = filter_chain_kernel(padded, specs, perm, meta, compact=compact,
-                               fill=fill)
+                               fill=fill, skip_decisions=decisions)
     return n_rows, perm, outs
+
+
+def _gather(outs, capacity: int, fill: float):
+    """Launch 2 of the compacting path: per-tile counts → exclusive
+    offsets → the gather kernel. Returns (mask/counter outputs, packed,
+    n_kept)."""
+    *chain_outs, packed_tiles, tile_cnt = outs
+    cnt = tile_cnt[:, 0]                                     # i32[T]
+    csum = torch.cumsum(cnt, dim=0, dtype=torch.int32)
+    offsets = csum - cnt
+    packed = compact_gather_kernel(packed_tiles, offsets, cnt, capacity,
+                                   fill=fill)
+    return chain_outs, packed, torch.clamp(csum[-1], max=capacity)
+
+
+def skip_triage(columns: torch.Tensor, specs: PredicateSpecs, *,
+                bloom: bool) -> SkipInfo:
+    """Zone-map (+ Bloom) triage for the cuda engine's skip tier.
+
+    Pads to the kernels' 2048-row tile with ZEROS (matching the chain
+    launch's padding): zero lanes can only weaken a fail proof, and a pass
+    proof they satisfy is still intersected with row validity in-kernel.
+    The min/max summaries come from the stats kernel; the Bloom bitmap and
+    the CNF tile resolution are PyTorch glue (``core.skip_tier``). Tile
+    counts are over the PADDED tiling: a ragged tail contributes
+    decided-but-empty sub-tiles.
+    """
+    assert STAT_TILE == skip_tier.SKIP_TILE
+    padded = _pad_cols(columns.to(torch.float32), DEFAULT_TILE)
+    mins, maxs = tile_stats_kernel(padded)
+    bl = skip_tier.bloom_bitmap(padded) if bloom else None
+    pass_t, fail_t = skip_tier.resolve_tiles(mins, maxs, bl, specs)
+    n_amb = (~(pass_t | fail_t)).sum(dtype=torch.int32)
+    return SkipInfo(pass_tiles=pass_t, fail_tiles=fail_t, n_ambiguous=n_amb)
 
 
 def filter_chain(columns: torch.Tensor, specs: PredicateSpecs,
@@ -108,13 +153,40 @@ def filter_chain_compact(columns: torch.Tensor, specs: PredicateSpecs,
         raise ValueError("capacity must be >= 1")
     n_rows, perm, outs = _launch_chain(columns, specs, perm, collect_rate,
                                        sample_phase, monitor_mode, True, fill)
-    mask_i8, active, cut, gcut, nmon, packed_tiles, tile_cnt = outs
-    cnt = tile_cnt[:, 0]                                     # i32[T]
-    csum = torch.cumsum(cnt, dim=0, dtype=torch.int32)
-    offsets = csum - cnt
-    packed = compact_gather_kernel(packed_tiles, offsets, cnt, capacity,
-                                   fill=fill)
-    n_kept = torch.clamp(csum[-1], max=capacity)
-    result = _reduce_result(mask_i8, active, cut, gcut, nmon, specs, perm,
-                            n_rows)
-    return result, packed, n_kept
+    chain_outs, packed, n_kept = _gather(outs, capacity, fill)
+    return _reduce_result(*chain_outs, specs, perm, n_rows), packed, n_kept
+
+
+def filter_chain_skip(columns: torch.Tensor, specs: PredicateSpecs,
+                      perm: torch.Tensor, skip: SkipInfo, *,
+                      collect_rate: int, sample_phase,
+                      monitor_mode: str = "row") -> ChainResult:
+    """``filter_chain`` with zone-map-decided sub-tiles bypassing the chain.
+
+    ``skip`` comes from ``skip_triage`` on the same batch. Decided
+    sub-tiles start with no pending rows (work counters charge only
+    ambiguous rows); the monitor lane is untouched, so ordering statistics
+    equal the unskipped launch's.
+    """
+    n_rows, perm, outs = _launch_chain(columns, specs, perm, collect_rate,
+                                       sample_phase, monitor_mode, False,
+                                       0.0, skip)
+    return _reduce_result(*outs, specs, perm, n_rows, skip)
+
+
+def filter_chain_compact_skip(columns: torch.Tensor, specs: PredicateSpecs,
+                              perm: torch.Tensor, skip: SkipInfo, *,
+                              collect_rate: int, sample_phase, capacity: int,
+                              monitor_mode: str = "row", fill: float = 0.0):
+    """``filter_chain_compact`` behind the skip tier: provably-passing
+    sub-tiles reach the in-kernel pack through the mask with no predicate
+    work; provably-failing ones contribute nothing. Saturation semantics
+    are unchanged."""
+    if capacity < 1:
+        raise ValueError("capacity must be >= 1")
+    n_rows, perm, outs = _launch_chain(columns, specs, perm, collect_rate,
+                                       sample_phase, monitor_mode, True, fill,
+                                       skip)
+    chain_outs, packed, n_kept = _gather(outs, capacity, fill)
+    return (_reduce_result(*chain_outs, specs, perm, n_rows, skip), packed,
+            n_kept)

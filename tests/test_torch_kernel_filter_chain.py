@@ -5,8 +5,8 @@ kernels' exact per-tile contract; here they are held bit for bit against
 ``repro``'s ``filter_chain_pallas`` / ``compact_gather_pallas`` run in
 interpret mode on the same numpy inputs, and the port's ``ops`` glue
 against ``repro``'s. The CUDA kernels themselves run only on a card: the
-``gpu``-marked test holds them against their twins there, where JAX is
-not installed — so ``repro`` is imported by the fixture of the tests that
+``gpu``-marked tests hold them (the stats kernel and the chain kernel's
+skip variant too) against their twins there, where JAX is not installed — so ``repro`` is imported by the fixture of the tests that
 compare with it, never at module level.
 """
 
@@ -252,4 +252,55 @@ def test_cuda_kernels_match_twins_on_card(n_rows):
             g = tfc.compact_gather_kernel(got[5], off, cnt, cap, fill=-2.0)
             w = tfc.compact_gather_twin(got[5], off, cnt, cap, fill=-2.0)
             assert torch.equal(g, w), cap
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_rows", [2048, 2048 * 37 + 777])
+def test_stats_and_skip_chain_kernels_match_twins_on_card(n_rows):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    from repro_torch.core import skip_tier
+
+    dev = torch.device("cuda")
+    cols = cols_for(n_rows, seed=9)
+    cols[0, 5] = np.nan                        # NaN, ±inf, ±0 in sub-tiles
+    cols[1, 300:302] = [np.inf, -np.inf]
+    cols[2, 512:640] = 0.0
+    cols[2, 520] = -0.0
+    cols = np.ascontiguousarray(               # clustered on column 0
+        cols[:, np.lexsort((cols[1], cols[0]))])
+    padded = torch.nn.functional.pad(torch.from_numpy(cols).to(dev),
+                                     (0, (-n_rows) % 2048))
+    got = tfc.tile_stats_kernel(padded)
+    want = tfc.tile_stats_twin(padded)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):              # NaN positions, then == (±0)
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        keep = ~torch.isnan(w)
+        assert bool((g[keep] == w[keep]).all())
+    t_specs = TP.pack(chain(TP, 6, ("a", "a", None, "b", "b", None)), dev)
+    pas, fail = skip_tier.resolve_tiles(*got, skip_tier.bloom_bitmap(padded),
+                                        t_specs)
+    assert bool(fail.any())
+    r = np.random.default_rng(n_rows)
+    rand = (r.uniform(size=pas.shape[0]) < 0.3,
+            r.uniform(size=pas.shape[0]) < 0.3)
+    perm = torch.tensor([4, 3, 2, 5, 1, 0], dtype=torch.int32, device=dev)
+    for decisions in ((pas, fail), rand):
+        decisions = tuple(torch.as_tensor(d).to(device=dev,
+                                                dtype=torch.int32)
+                          for d in decisions)
+        for mode in (0, 1):
+            meta = torch.tensor([n_rows, 37, 5, mode], dtype=torch.int32,
+                                device=dev)
+            for compact in (False, True):
+                got = tfc.filter_chain_kernel(padded, t_specs, perm, meta,
+                                              compact=compact, fill=-2.0,
+                                              skip_decisions=decisions)
+                want = tfc.filter_chain_twin(padded, t_specs, perm, meta,
+                                             compact=compact, fill=-2.0,
+                                             skip_decisions=decisions)
+                for name, g, w in zip(OUT_NAMES, got, want):
+                    assert torch.equal(g, w), (name, mode, compact)
     torch.cuda.synchronize()

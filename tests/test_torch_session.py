@@ -191,14 +191,27 @@ def test_validate_combo_raises_the_same_errors(kw):
 @pytest.mark.parametrize("kw,item", [
     (dict(shards=2), "item 10"),
     (dict(tokenize=T.TokenizeSpec(1000)), "item 5"),
-    (dict(skip_tier="zonemap"), "item 6"),
-    (dict(skip_tier="auto"), "item 6"),
     (dict(engine="numpy"), "item 12"),
     (dict(cost_mode="measured"), "item 12"),
 ])
 def test_unported_combinations_raise_not_implemented(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         t_plan(**kw)
+
+
+@pytest.mark.parametrize("tier", ["zonemap", "zonemap+bloom", "auto"])
+@pytest.mark.parametrize("engine", ["torch", "cuda"])
+def test_skip_tier_plans_build(engine, tier):
+    """Skip-tier plans build and step, with the plain plan's mask."""
+    cols = torch.from_numpy(T_stream.gen_batch(0, 0, 0, BATCH,
+                                               layout="clustered"))
+    masks = []
+    for kw in (dict(skip_tier=tier), {}):
+        sess = T.build_session(t_plan(engine=engine, **kw), device="cpu")
+        _, res = sess.step(sess.init_state(), cols)
+        masks.append(res.mask_np)
+    np.testing.assert_array_equal(masks[0], masks[1])
+    assert res.n_tiles_skipped_fail == 0          # the plain plan's counters
 
 
 def test_default_engine_and_bad_engine():

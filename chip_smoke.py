@@ -8,7 +8,9 @@ four phases; any failure exits non-zero:
 
 1. Device: the card's name and power limit, torch and CUDA versions; the
    kernels are built from ``src/repro_torch/kernels/filter_chain/csrc``
-   with nvcc and ptxas's register / shared-memory / spill report printed.
+   with nvcc and ptxas's register / shared-memory / spill report printed;
+   ``cuobjdump -sass`` of the chain kernel must hold no FFMA (HASHMIX
+   rounds every step on its own, and no float division is left).
 2. Kernel vs twin: the chain and gather kernels against their plain
    PyTorch twins on the card — ragged width (4,194,304 + 777 rows),
    P in {1, 3, 6} with HASHMIX and an OR group, row and block monitor
@@ -18,7 +20,12 @@ four phases; any failure exits non-zero:
    and ``==`` elsewhere, since min/max of ±0 may pick either zero), and the
    chain kernel's skip variant on the same P / monitor / compaction grid
    with two sets of decisions: random ones, and the real triage of the
-   test columns clustered on column 0 (bit-identical).
+   test columns clustered on column 0 (bit-identical). Then the chain
+   kernel's hazards (``hazard_cases``) at a ragged width that is no
+   multiple of 8, 32 or 2048: warps without a pending row inside busy
+   tiles, P = G = 32, block mode with tile_stride 1 and a nonzero phase,
+   HASHMIX first — each mask only, packed, and with skip decisions that
+   mix pass, fail and ambiguous sub-tiles in every tile (bit-identical).
 3. The stream: the paper's workload as users run it — ``LogStream`` with
    seed 0 and regime drift (period 750,000 rows, amplitude 1.5), 18
    batches of 2^22 rows x 3 f32 columns (75.5M rows), through
@@ -39,7 +46,11 @@ four phases; any failure exits non-zero:
    show the stats kernel and the skip chain kernel on every skip step.
 4. Numbers, all taken on this card: each kernel's device time at the
    stream's shapes beside its bound, its twin's time and a one-call
-   PyTorch yardstick; end-to-end rows/s of ``session.step`` for every
+   PyTorch yardstick (the chain rows with two bounds: the rows this batch
+   needs, and every column read once); the mask-only chain kernel's time
+   split by varying its inputs (no sampled row, HASHMIX cut to one round,
+   one predicate beside a one-pass PyTorch compare); end-to-end rows/s of
+   ``session.step`` for every
    plan, and of the tier on vs off in 6 alternating pairs on ``cuda``;
    device-busy share and kernels per step; device→host syncs per
    steady-state step against the budgets of PERF.md §2.
@@ -62,6 +73,7 @@ ROOT = Path(__file__).resolve().parent
 BATCH_ROWS = 1 << 22           # 4,194,304 rows x 3 f32 columns = 48 MiB
 N_BATCHES = 18                 # 75.5M rows: the paper's 75M-row dataset
 RAGGED_ROWS = BATCH_ROWS + 777
+HAZARD_ROWS = 2048 * 700 + 13  # not a multiple of 8, 32 or 2048
 N_SKIP_BATCHES = 8             # the clustered skip-tier stream (33.6M rows)
 PAIRS = 6                      # alternating off/on pairs of the tier's rate
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -102,6 +114,7 @@ def main() -> int:
     smi = phase_device(torch)
     errs = phase_kernels_vs_twins(torch, dev)
     errs.update(phase_skip_kernels_vs_twins(torch, dev))
+    phase_hazards(torch, dev, errs)
     runs = phase_stream(torch, dev)
     runs["skip"] = phase_skip_stream(torch, dev,
                                      runs["batches"][:N_SKIP_BATCHES])
@@ -135,7 +148,34 @@ def phase_device(torch) -> str:
     for line in lib.log.splitlines():
         if line.strip():
             log(f"  {line}")
+    _check_chain_sass(fc, lib.path)
     return smi
+
+
+def _check_chain_sass(fc, library: Path) -> None:
+    """The chain kernel's machine code holds no FFMA: a fused multiply-add
+    would be a HASHMIX step contracted (its rounding differs from the
+    twin's) or the refinement of a float division, which the kernel
+    replaces by an exact multiply. MUFU.RCP stays for integer modulos."""
+    cuobjdump = Path(fc._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library)],
+                          capture_output=True, text=True,
+                          check=True).stdout
+    body = next((part for part in sass.split("Function : ")
+                 if "chain_kernel" in part.split("\n", 1)[0]), None)
+    check(body is not None, "cuobjdump shows no chain_kernel")
+    opcodes = []     # "/*0220*/  @!P0 FADD R1, R2, R3 ;  /* 0x... */"
+    for line in body.splitlines():
+        words = line.split("*/", 1)[1].split() if "*/" in line else []
+        if words and words[0].startswith("@"):
+            words = words[1:]
+        if words and not words[0].startswith("/*"):
+            opcodes.append(words[0])
+    count = {name: sum(o.startswith(name) for o in opcodes)
+             for name in ("FFMA", "FMUL", "FADD", "FRND", "MUFU.RCP",
+                          "CALL")}
+    log(f"  chain_kernel SASS: {len(opcodes)} instructions; {count}")
+    check(count["FFMA"] == 0, "chain_kernel's SASS holds an FFMA")
 
 
 # ===================================================================== 2
@@ -345,6 +385,104 @@ def phase_skip_kernels_vs_twins(torch, dev) -> dict:
             f"triage ({n_pass} pass / {n_fail} fail / {n_amb} ambiguous "
             "sub-tiles)")
     return errs
+
+
+def hazard_cases(torch, dev, n_rows: int):
+    """The chain kernel's hazards at ``n_rows`` rows: a list of (label,
+    padded f32[4, Rp], specs, perm, meta), and skip decisions that mix
+    pass, fail and ambiguous sub-tiles inside every tile."""
+    import numpy as np
+
+    from repro_torch.core import predicates as P
+    from repro_torch.kernels.filter_chain import filter_chain as fc
+
+    tile = fc.DEFAULT_TILE
+    cols = _test_columns(torch, dev, n_rows, seed=4)
+    # column 0 sorted inside every full tile: a GT on it cuts whole warps
+    # while the rest of the tile stays pending
+    n_full = n_rows // tile * tile
+    order = torch.arange(n_rows, device=dev)
+    within = torch.sort(cols[0, :n_full].reshape(-1, tile), dim=1,
+                        stable=True).indices
+    order[:n_full] = (within + torch.arange(0, n_full, tile, device=dev)
+                      [:, None]).reshape(-1)
+    tiled = cols[:, order].contiguous()
+    mix = P.MIX_MOD
+    chain3, perm3 = _test_chains()[3]            # HASHMIX at position 0
+    chain6, perm6 = _test_chains()[6]
+    warps = [P.Predicate("gt", 0, P.OP_GT, 0.6),
+             P.Predicate("lt", 1, P.OP_LT, 0.3, group="or"),
+             P.Predicate("mix", 3, P.OP_HASHMIX, 0.45 * mix, rounds=24,
+                         group="or")]
+    p32 = []                                     # 32 singleton groups
+    for i in range(fc.MAX_PREDS):
+        c = i % 4
+        if i == 30:
+            p32.append(P.Predicate(f"eq{i}", 2, P.OP_EQ, 3.0))
+        elif c == 0:
+            p32.append(P.Predicate(f"gt{i}", 0, P.OP_GT, 0.01 * (i % 7)))
+        elif c == 1:
+            p32.append(P.Predicate(f"lt{i}", 1, P.OP_LT, 1 - 0.01 * (i % 7)))
+        elif c == 2:
+            p32.append(P.Predicate(f"bet{i}", 2, P.OP_BETWEEN,
+                                   -0.5 + (i % 3 == 0), t2=7.5))
+        else:
+            p32.append(P.Predicate(f"mix{i}", 3, P.OP_HASHMIX, 0.03 * mix,
+                                   rounds=1 + i % 24))
+    perm32 = np.random.default_rng(32).permutation(fc.MAX_PREDS).tolist()
+
+    def pad(c):
+        return torch.nn.functional.pad(c, (0, (-n_rows) % tile))
+
+    def meta(collect_rate, phase, mode):
+        return torch.tensor([n_rows, collect_rate, phase, mode],
+                            dtype=torch.int32).to(dev)
+
+    cases = [
+        ("ragged rows, P=6", pad(cols), chain6, perm6, meta(1000, 7, 0)),
+        ("warps without pending rows in busy tiles", pad(tiled), warps,
+         [0, 2, 1], meta(1000, 7, 0)),
+        ("P=G=32", pad(cols), p32, perm32, meta(37, 3, 0)),
+        ("block mode, tile_stride 1, phase 5", pad(cols), chain6, perm6,
+         meta(16, 5, 1)),
+        ("HASHMIX first", pad(cols), chain3, perm3, meta(1000, 7, 0)),
+    ]
+    n_sub = pad(cols).shape[1] // fc.STAT_TILE
+    sub = torch.arange(n_sub, device=dev) % 3
+    mixed = ((sub == 0).to(torch.int32), (sub == 1).to(torch.int32))
+    return [(label, x, P.pack(preds, dev),
+             torch.tensor(perm, dtype=torch.int32).to(dev), m)
+            for label, x, preds, perm, m in cases], mixed
+
+
+def phase_hazards(torch, dev, errs: dict, n_rows: int = HAZARD_ROWS) -> None:
+    """Every variant of the chain kernel on its hazard cases, bit for bit
+    against the twin; raises ``errs`` "chain" and "skip" to the largest
+    |kernel - twin| seen."""
+    from repro_torch.kernels.filter_chain import filter_chain as fc
+
+    log(f"== phase 2c: chain kernel hazards ({n_rows} rows)")
+    names = ("mask", "active", "cut", "gcut", "nmon", "packed", "cnt")
+    cases, mixed = hazard_cases(torch, dev, n_rows)
+    for label, padded, specs, perm, meta in cases:
+        for dec in (None, mixed):
+            for compact in (False, True):
+                kw = dict(compact=compact, fill=-1.0, skip_decisions=dec)
+                got = fc.filter_chain_kernel(padded, specs, perm, meta, **kw)
+                want = fc.filter_chain_twin(padded, specs, perm, meta, **kw)
+                torch.cuda.synchronize()
+                key = "chain" if dec is None else "skip"
+                for name, g, w in zip(names, got, want):
+                    check(g.dtype == w.dtype and g.shape == w.shape,
+                          f"chain output {name} has the wrong type")
+                    errs[key] = max(errs[key], _max_abs_err(torch, g, w))
+                    check(_bits_equal(torch, g, w),
+                          f"chain kernel != twin: {label}, skip="
+                          f"{dec is not None} compact={compact} "
+                          f"output={name}")
+        log(f"  {label}: mask, pack and skip (pass/fail/ambiguous "
+            f"sub-tiles in every tile) bit-identical; "
+            f"{int(got[6].sum())} survivors with the skip decisions")
 
 
 # ===================================================================== 3
@@ -725,6 +863,49 @@ def _bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _chain_split(torch, dev, batches, chain, perm, ms_a: float) -> None:
+    """The mask-only chain kernel's time split by varying its inputs on
+    the same batches: (a) as on the main path, (b) with no sampled row,
+    (c) with HASHMIX cut to one round (same threshold, so every position
+    before it sees the same pending rows), (d) ``int_hi`` alone, beside a
+    one-pass PyTorch compare that streams the same column into a mask."""
+    import dataclasses
+
+    from repro_torch.core import pack
+    from repro_torch.core import predicates as P
+    from repro_torch.kernels.filter_chain import filter_chain as fc
+    from repro_torch.kernels.filter_chain import ops
+
+    rows = BATCH_ROWS
+    specs = pack(chain, dev)
+    meta = ops._pack_meta(rows, 1000, 0, "row", dev)
+    # (gidx + 1) % 2^30 == 0 for no row below 2^30 - 1
+    no_mon = ops._pack_meta(rows, 1 << 30, 1, "row", dev)
+    one = pack([dataclasses.replace(p, rounds=1) if p.op == P.OP_HASHMIX
+                else p for p in chain], dev)
+    hi = next(i for i, p in enumerate(chain) if p.name == "int_hi")
+    alone = pack([chain[hi]], dev)
+    first = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def run(sp, pm, m):
+        return _device_ms(torch, lambda b: fc.filter_chain_kernel(b, sp, pm,
+                                                                  m),
+                          [(b,) for b in batches], 40)
+
+    col, t1 = chain[hi].column, alone.t1[0]
+    lines = [
+        ("(a) as on the main path", ms_a),
+        ("(b) monitor lane empty", run(specs, perm, no_mon)),
+        ("(c) HASHMIX cut to 1 round", run(one, perm, meta)),
+        ("(d) int_hi alone", run(alone, first, meta)),
+        ("(d) yardstick (col > t).to(int8)", _device_ms(
+            torch, lambda b: (b[col] > t1).to(torch.int8),
+            [(b,) for b in batches], 40)),
+    ]
+    for label, ms in lines:
+        log(f"  split {label}: {ms:.4f} ms ({ms / ms_a:.1%} of (a))")
+
+
 def phase_numbers(torch, dev, runs, errs) -> list:
     from repro_torch.configs.paper_filters import filter_chain
     from repro_torch.core import pack
@@ -749,8 +930,10 @@ def phase_numbers(torch, dev, runs, errs) -> list:
     mask_i8, active, *_ = fc.filter_chain_kernel(batches[0], specs, perm,
                                                  metas[0])
     alive = active.sum(dim=0).tolist()
+    n_surv = int(mask_i8.sum())
     log(f"  batch 0, order {[chain[p].name for p in perm.tolist()]}: rows "
-        f"pending at each position {[int(a) for a in alive]}")
+        f"pending at each position {[int(a) for a in alive]}; "
+        f"{n_surv} survivors")
     n_sampled = rows // 1000 + 1
     ops_chain = sum(a * _ops_per_row(chain[p]) for a, p in
                     zip(alive, perm.tolist())) \
@@ -764,17 +947,36 @@ def phase_numbers(torch, dev, runs, errs) -> list:
                         args, 40)
         plain = _device_ms(torch, lambda *a: fc.filter_chain_twin(*a, **kw),
                            args, 4)
-        moved = n_cols * rows * 4 + rows + (n_cols * rows * 4 if compact
-                                            else 0)
+        # two byte counts: every column read once (the earlier yardstick), and
+        # what this batch needs — of each column the rows pending at the
+        # positions that read it (the most at any one of them, a lower
+        # bound on their union), the sampled rows, and with the pack every
+        # column of the survivors; plus the mask, the packed buffer and
+        # the per-tile counts
+        packed = (n_cols * rows * 4 + 4 * (rows // fc.DEFAULT_TILE)
+                  if compact else 0)
+        every = n_cols * rows * 4 + rows + packed
+        need = {}
+        for a, p in zip(alive, perm.tolist()):
+            c = chain[p].column
+            need[c] = max(need.get(c, 0), a, n_sampled)
+        if compact:
+            need = {c: max(need.get(c, 0), n_surv) for c in range(n_cols)}
+        moved = sum(need.values()) * 4 + rows + packed
         bound_ms, bound_by = _bound(moved, ops_chain)
+        every_ms = _bound(every, ops_chain)[0]
         out.append(dict(name=label, route="cuda", source=SOURCE,
                         replaces=f"{TPU_SOURCE}:156", launches=launches,
                         max_abs_err=errs["chain"], ms=ms, plain_ms=plain,
                         bound_ms=bound_ms, bound_by=bound_by,
-                        library_ms=None))
-        log(f"  {label}: {ms:.4f} ms/launch (bound {bound_ms:.4f} ms by "
-            f"{bound_by}, {moved / 2**20:.1f} MiB, {ops_chain:,.0f} ops; "
-            f"{bound_ms / ms:.1%} of bound); twin {plain:.4f} ms")
+                        library_ms=None, bound_ms_every_column=every_ms))
+        log(f"  {label}: {ms:.4f} ms/launch; bound {bound_ms:.4f} ms by "
+            f"{bound_by} from the pending rows ({moved / 2**20:.1f} MiB, "
+            f"{ops_chain:,.0f} ops; {bound_ms / ms:.1%} of bound), "
+            f"{every_ms:.4f} ms from every column ({every / 2**20:.1f} MiB; "
+            f"{every_ms / ms:.1%}); twin {plain:.4f} ms")
+        if not compact:
+            _chain_split(torch, dev, batches, chain, perm, ms)
 
     # gather at the stream's auto capacity
     cap = runs["auto"]["cuda"]["steps"][-1]["capacity"]
@@ -883,18 +1085,20 @@ def _skip_numbers(torch, dev, sk, errs, specs) -> list:
                    zip(alive, perm.tolist())) \
         + (rows // 1000 + 1) * sum(_ops_per_row(p) for p in chain)
     bound_ms, bound_by = _bound(moved, ops_skip)
+    every_ms = _bound(moved_tiles, ops_skip)[0]
     out.append(dict(name="filter_chain[skip]", route="cuda", source=SOURCE,
                     replaces=f"{TPU_SOURCE}:164",
                     launches=sk[("a", "cuda")]["launches"]["skip"],
                     max_abs_err=errs["skip"], ms=ms, plain_ms=plain,
-                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                    bound_ms_every_column=every_ms))
     log(f"  filter_chain[skip]: {ms:.4f} ms/launch on clustered batches "
         f"({n_amb} of {n_sub} sub-tiles ambiguous in batch 0; pending rows "
         f"{[int(a) for a in alive]}; bound {bound_ms:.4f} ms by {bound_by}, "
         f"{moved / 2**20:.2f} MiB of pending rows, {ops_skip:,.0f} ops; "
         f"{bound_ms / ms:.1%} of bound; every column of the ambiguous "
         f"sub-tiles would be {moved_tiles / 2**20:.2f} MiB, "
-        f"{_bound(moved_tiles, ops_skip)[0]:.4f} ms); twin {plain:.4f} ms; "
+        f"{every_ms:.4f} ms); twin {plain:.4f} ms; "
         f"the same kernel without decisions {no_skip:.4f} ms")
 
     for key, r in sk.items():

@@ -255,7 +255,7 @@ class AdaptiveFilter:
         (the state before the boundary). Estimated pass rate = Π_g S_g over
         the exact per-group selectivities; correlation between groups is
         absorbed by ``slack``. Reads the device once: call it only on a
-        step that crossed a boundary.
+        step that crossed a boundary or started from a restored state.
         """
         if self.plan.capacity != "auto":
             return

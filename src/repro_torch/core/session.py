@@ -232,15 +232,19 @@ class FilterSession:
         self.plan = plan
         self.device = torch.device(device)
         self.filter = AdaptiveFilter(plan, self.device)
-        # host mirror of rows_into_epoch and the tensor it mirrors
+        # host mirror of rows_into_epoch and the tensor it mirrors; whether
+        # that state came from outside (a restore or a foreign state)
         self._rows_host = 0
         self._rows_ref = None
+        self._foreign = False
         # skip_tier="auto": the online us_per_row tuner (lazy; host-owned)
         self._skip_tuner: skip_tier_lib.SkipTierTuner | None = None
 
-    def _anchor(self, state: OrderState, rows: int) -> None:
+    def _anchor(self, state: OrderState, rows: int, *,
+                foreign: bool = False) -> None:
         self._rows_host = rows
         self._rows_ref = state.rows_into_epoch
+        self._foreign = foreign
 
     def init_state(self) -> OrderState:
         state = self.filter.init_state()
@@ -280,7 +284,9 @@ class FilterSession:
         tier is on for this step), the chain (+ compaction), fires the
         epoch boundary the host mirror says is due (the deferred exchange,
         for deferred plans) and retunes ``capacity="auto"`` after a
-        boundary.
+        boundary, or on the first step from a restored or foreign state
+        (whose epoch may be past the last one the tuner saw, as repro's
+        every-step check finds).
         """
         t_gate = time.perf_counter()
         cols = torch.as_tensor(batch, dtype=torch.float32, device=self.device)
@@ -288,7 +294,9 @@ class FilterSession:
         f = self.filter
         if state.rows_into_epoch is not self._rows_ref:
             # a state this session did not produce: re-anchor (one read)
-            self._anchor(state, self._sync_rows_into_epoch(state))
+            self._anchor(state, self._sync_rows_into_epoch(state),
+                         foreign=True)
+        retune = self._foreign
         fire, rows = f.rows_after(self._rows_host, n_rows)
         prev = state
         packed = n_kept = cap = None
@@ -322,7 +330,7 @@ class FilterSession:
             state = f.exchange(state)
             rows %= self.plan.ordering.calculate_rate
             fire = True
-        if fire:
+        if fire or retune:
             f.observe_for_capacity(prev, state, n_rows)
         self._anchor(state, rows)
         metrics = metrics._replace(epoch=state.epoch)
@@ -437,7 +445,7 @@ class FilterSession:
                 "needs the elastic reshard: ROADMAP.md queue 1 item 10 "
                 "(sharding) is not ported yet")
         restored = fstate_from_arrays(arrays, self.device)
-        self._anchor(restored, int(rows))
+        self._anchor(restored, int(rows), foreign=True)
         return restored
 
 

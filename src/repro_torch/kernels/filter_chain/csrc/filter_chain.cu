@@ -11,8 +11,7 @@
 //       accumulator for the open group ANDs into the row mask when the
 //       group closes; rows with gidx >= n_rows never count;
 //     * active[t, k] — rows still pending before position k, an exact
-//       integer block count written as f32; when it is 0 the whole block
-//       skips the predicate (block-uniform short-circuit);
+//       integer count written as f32;
 //     * mask i8 for every padded row of the tile;
 //     * the monitor lane: every predicate, in user order, on the sampled
 //       rows (row mode: (gidx + phase) % collect_rate == 0; block mode: the
@@ -22,28 +21,51 @@
 //       of the tile's own slot by a block-wide exclusive scan (CUB
 //       BlockScan), a `fill` tail, and the survivor count cnt[t].
 //
-//   What bounds it on an H100: device memory. It reads C*R*4 bytes and
-//   writes R bytes of mask (plus C*R*4 packed bytes when compacting), i.e.
-//   ~0.25-2 flop per byte; only HASHMIX (24 rounds x ~6 flops) adds
-//   arithmetic, and only on the rows still pending at its position.
+//   What bounds it on an H100: device memory and the latency of the
+//   dependent column loads. The first column is read for every row; later
+//   columns only where a row is still pending (on the paper stream ~8% of
+//   rows reach the 24-round HASHMIX and ~5% the last predicate), plus the
+//   1-byte mask (and C*R*4 packed bytes when compacting). Each later
+//   position costs one device-memory round trip for a warp with a pending
+//   row there; HASHMIX adds 24 dependent rounds of arithmetic per pending
+//   value; the monitor lane adds a few scalar loads per tile.
 //
-//   What the design does about it: each thread owns kRows consecutive rows
-//   of the tile in registers (16-byte vector loads of a column slice), so
-//   a column is read once per predicate that touches it and the row state
-//   (mask, OR accumulator) never leaves registers. A predicate is evaluated
-//   only on the rows still pending at its position (row-level laziness:
-//   the outputs equal the Pallas kernel's, which evaluates whole tiles),
-//   and a thread none of whose rows is pending loads nothing, so settled
-//   and decided rows cost no column bytes beyond their 32-byte sector.
+//   What the design does about it:
+//     * each thread owns kRows consecutive rows (16-byte vector loads of
+//       a column slice), kept as bits of its row masks; a column loaded
+//       for one position is reused by later positions on that column,
+//       and a thread none of whose rows is pending loads nothing. The
+//       first column's load is issued before the set-up;
+//     * HASHMIX runs on a per-warp work list: the warp's pending values go
+//       to shared memory (a shuffle prefix sum gives each lane its slots),
+//       all 32 lanes evaluate them 32 at a time, the bits come back. The
+//       arithmetic per value is unchanged, so the results are the same;
+//       cheap predicates evaluate in place;
+//     * no block barrier in the chain: a warp with no pending row at a
+//       position skips it (a warp vote replaces the block short-circuit,
+//       which never changed an output), and active[t, k] accumulates by
+//       warp reductions and shared-memory atomics, written after the one
+//       barrier at the end;
+//     * the sampled rows of a tile have a closed form (first lane and
+//       stride, one 32-bit modulo per thread); after the chain a warp
+//       takes a sampled row, a lane a predicate, and a ballot gives the
+//       row's failing set for the groups. Each warp's first row is loaded
+//       before the chain, so its latency hides behind it;
+//     * one 8-byte mask store per thread, and float4 fill stores in the
+//       pack;
+//     * 40 registers, no spill, 10.7 KB of shared memory: 6 CTAs per SM.
+//       Occupancy is what hides the dependent loads, so the state lives in
+//       bit masks and every modulo is taken in 32 bits.
 //   Counts use warp reductions plus shared-memory integer atomics, so
 //   every count is exact and independent of thread scheduling.
 //
 //   With skip decisions (`pass` / `fail` != nullptr), it replaces
 //   _kernel (skip=True) as well (filter_chain.py:164-199, :203-204,
 //   :231-235): one i32 pass flag and one fail flag per 128-row sub-tile
-//   from the zone-map triage. Rows of a decided sub-tile start
-//   non-pending, so `active` counts only ambiguous rows and a fully
-//   decided tile takes the block-uniform short-circuit; after the chain,
+//   from the zone-map triage. A thread's kRows rows lie in one sub-tile,
+//   so each thread reads one flag of each. Rows of a decided sub-tile
+//   start non-pending, so `active` counts only ambiguous rows and warps
+//   of decided sub-tiles skip every position; after the chain,
 //   mask |= pass & valid. The monitor lane and the pack are unchanged
 //   (pass rows reach the pack through the mask).
 //
@@ -76,8 +98,9 @@
 //   shuffle reduction per sub-tile.
 //
 // Exactness: HASHMIX computes y*MUL + ADD and y - floor(y/MOD)*MOD with
-// separately rounded __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn, so no
-// step is contracted into a fused multiply-add; OP_EQ rounds with rintf
+// separately rounded __fmul_rn / __fadd_rn / __fsub_rn, y/MOD as the
+// exact-equivalent y * 2^-20, so no step is contracted into a fused
+// multiply-add and no division routine remains; OP_EQ rounds with rintf
 // (half to even, as jnp.round). Never build this file with
 // --use_fast_math.
 // ---------------------------------------------------------------------------
@@ -90,6 +113,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 8;                 // rows per thread
 constexpr int kTile = kThreads * kRows;  // 2048: the logical tile
 constexpr int kMaxPreds = 32;  // predicate sets are 32-bit masks
@@ -99,11 +123,15 @@ constexpr int kStatPerWarp = 4;          // sub-tiles reduced by one warp
 constexpr float kMixMul = 1.0000019073486328f;
 constexpr float kMixAdd = 0.31830987334251404f;
 constexpr float kMixMod = 1048576.0f;
+constexpr float kMixInvMod = 1.0f / kMixMod;   // 2^-20, exact
 
+// y / 2^20 and y * 2^-20 are the same real number, so their correctly
+// rounded f32 results are the same bits (subnormals included): the
+// multiply stands in for the IEEE division the reference spells.
 __device__ __forceinline__ float hashmix(float y, int rounds) {
   for (int r = 0; r < rounds; ++r) {
     y = __fadd_rn(__fmul_rn(y, kMixMul), kMixAdd);
-    y = __fsub_rn(y, __fmul_rn(floorf(__fdiv_rn(y, kMixMod)), kMixMod));
+    y = __fsub_rn(y, __fmul_rn(floorf(__fmul_rn(y, kMixInvMod)), kMixMod));
   }
   return y;
 }
@@ -119,13 +147,6 @@ __device__ __forceinline__ bool eval_pred(float x, int op, float t1, float t2,
   }
 }
 
-// Adds `v` of every thread into *slot. Every thread of the block must call
-// it (warp-synchronous reduction), and the caller syncs before reading.
-__device__ __forceinline__ void block_add(int* slot, int v) {
-  unsigned s = __reduce_add_sync(0xffffffffu, static_cast<unsigned>(v));
-  if ((threadIdx.x & 31) == 0 && s != 0u) atomicAdd(slot, static_cast<int>(s));
-}
-
 // kRows consecutive floats from a 16-byte aligned address (float4 loads).
 __device__ __forceinline__ void load_rows(const float* __restrict__ p,
                                           float (&v)[kRows]) {
@@ -136,8 +157,38 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ p,
   }
 }
 
+// Exclusive prefix sum of v over the lanes of a full warp.
+__device__ __forceinline__ int warp_exclusive_sum(int v, int lane) {
+  int s = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, s, o);
+    if (lane >= o) s += u;
+  }
+  return s - v;
+}
+
+// Bits 0-3 of b as the bytes 0/1 of a word: b * 0x00204081 places bit i at
+// bit 8i, and the four shifted copies do not overlap.
+__device__ __forceinline__ unsigned bits_to_bytes(unsigned b) {
+  return ((b & 0xfu) * 0x00204081u) & 0x01010101u;
+}
+
+// (a + b) mod m in [0, m) for 0 <= a < 2^31, an i32 b and m >= 1: |a + b|
+// fits 32 unsigned bits either way, so no 64-bit division is needed.
+__device__ __forceinline__ int mod_nonneg(long long a, int b, int m) {
+  const long long v = a + b;
+  const unsigned um = static_cast<unsigned>(m);
+  if (v >= 0) return static_cast<int>(static_cast<unsigned>(v) % um);
+  const unsigned r = static_cast<unsigned>(-v) % um;
+  return r == 0u ? 0 : static_cast<int>(um - r);
+}
+
 // One CTA per logical tile of kTile rows; thread `tid` owns the
-// consecutive rows [tid*kRows, tid*kRows + kRows) of its tile.
+// consecutive rows [tid*kRows, tid*kRows + kRows) of its tile, held as bit
+// r of its row masks. A warp moves through the chain on its own; the
+// block synchronises after the set-up and to write the tile's counts (and
+// in the pack's scan).
 __global__ void __launch_bounds__(kThreads) chain_kernel(
     const float* __restrict__ cols, int n_cols, long long row_stride,
     const int* __restrict__ col, const int* __restrict__ op,
@@ -152,171 +203,226 @@ __global__ void __launch_bounds__(kThreads) chain_kernel(
   using BlockScan = cub::BlockScan<int, kThreads>;
 
   __shared__ int s_col[kMaxPreds], s_op[kMaxPreds], s_rounds[kMaxPreds];
-  __shared__ int s_perm[kMaxPreds], s_group[kMaxPreds];
   __shared__ float s_t1[kMaxPreds], s_t2[kMaxPreds];
+  __shared__ int s_step[kMaxPreds];   // perm[k] | opens << 8 | closes << 9
   __shared__ unsigned s_members[kMaxPreds];
   __shared__ int s_alive[kMaxPreds], s_cut[kMaxPreds], s_gcut[kMaxPreds];
-  __shared__ int s_nsamp;
+  __shared__ int s_samp[3];   // the sampled rows: first, step, count
+  __shared__ float s_list[kWarps][32 * kRows];   // per-warp work list
   __shared__ typename BlockScan::TempStorage s_scan;
 
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
   const int t = blockIdx.x;
-  if (tid < n_preds) {
-    s_col[tid] = col[tid];
-    s_op[tid] = op[tid];
-    s_rounds[tid] = rounds[tid];
-    s_t1[tid] = t1[tid];
-    s_t2[tid] = t2[tid];
-    s_perm[tid] = perm[tid];
-    s_group[tid] = group[tid];
-    s_alive[tid] = 0;
-    s_cut[tid] = 0;
-  }
-  if (tid < n_groups) {
-    s_gcut[tid] = 0;
-    s_members[tid] = 0u;
-  }
-  if (tid == 0) s_nsamp = 0;
-  __syncthreads();
-  if (tid < n_groups) {
-    unsigned m = 0u;
-    for (int p = 0; p < n_preds; ++p)
-      if (s_group[p] == tid) m |= 1u << p;
-    s_members[tid] = m;
-  }
-
-  const long long n_rows = meta[0];
-  const int collect_rate = meta[1];
-  const int phase = meta[2];
-  const int block_mode = meta[3];
   const long long tile_base = static_cast<long long>(t) * kTile;
   const int lane0 = tid * kRows;
 
-  // skip decisions: a thread's kRows rows lie in one 128-row sub-tile
+  // Position 0 reads its column for every undecided row: start that load
+  // first, so that it is in flight during the set-up below. (Rows past
+  // n_rows are padding inside the buffer and are never counted.)
+  // Skip decisions: a thread's kRows rows lie in one 128-row sub-tile.
   bool pass = false, decided = false;
   if (pass_t != nullptr) {
     const long long sub = (tile_base + lane0) / kStatTile;
     pass = pass_t[sub] > 0;
     decided = pass || fail_t[sub] > 0;
   }
-  bool valid[kRows], m[kRows], gor[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    valid[r] = tile_base + lane0 + r < n_rows;
-    m[r] = valid[r] && !decided;
-    gor[r] = false;
+  float x[kRows];      // column xcol of this thread's rows, once loaded
+  int xcol = -1;
+  if (!decided) {
+    xcol = col[perm[0]];
+    load_rows(cols + xcol * row_stride + tile_base + lane0, x);
   }
+
+  if (tid < n_preds) {
+    s_col[tid] = col[tid];
+    s_op[tid] = op[tid];
+    s_rounds[tid] = rounds[tid];
+    s_t1[tid] = t1[tid];
+    s_t2[tid] = t2[tid];
+    const int p = perm[tid];
+    const bool opens = tid == 0 || group[perm[tid - 1]] != group[p];
+    const bool closes = tid == n_preds - 1 || group[perm[tid + 1]] != group[p];
+    s_step[tid] = p | (opens ? 0x100 : 0) | (closes ? 0x200 : 0);
+    s_alive[tid] = 0;
+    s_cut[tid] = 0;
+  }
+  if (tid < n_groups) {
+    unsigned m = 0u;
+    for (int p = 0; p < n_preds; ++p)
+      if (group[p] == tid) m |= 1u << p;
+    s_members[tid] = m;
+    s_gcut[tid] = 0;
+  }
+
+  const long long n_rows = meta[0];
+  const int collect_rate = meta[1];
+  const int phase = meta[2];
+  const int block_mode = meta[3];
+  const long long left = n_rows - tile_base;
+  const int lim = left <= 0 ? 0 : (left < kTile ? static_cast<int>(left)
+                                                : kTile);
+
+  // The monitor lane's sampled rows of this tile, in closed form: lanes
+  // first, first + step, ... below lim (row mode: (gidx + phase) %
+  // collect_rate == 0; block mode: the first 128 lanes of every
+  // max(collect_rate*128/kTile, 1)-th tile).
+  int first = 0, step = 1, n_samp = 0;
+  if (lim > 0) {
+    if (block_mode == 1) {
+      long long stride = static_cast<long long>(collect_rate) * 128 / kTile;
+      if (stride < 1) stride = 1;
+      if (mod_nonneg(t, phase, static_cast<int>(stride)) == 0)
+        n_samp = lim < 128 ? lim : 128;
+    } else {
+      const int r0 = mod_nonneg(tile_base, phase, collect_rate);
+      const int f = r0 == 0 ? 0 : collect_rate - r0;
+      step = collect_rate;
+      if (f < lim) {
+        first = static_cast<int>(f);
+        n_samp = (lim - 1 - first) / step + 1;
+      }
+    }
+  }
+  // warp w evaluates sampled rows w, w + kWarps, ..., lane q predicate q;
+  // its first row is loaded now and evaluated after the chain
+  const int warp = tid >> 5;
+  float mv = 0.0f;
+  if (warp < n_samp && lane < n_preds)
+    mv = cols[col[lane] * row_stride + tile_base + first + warp * step];
+  if (tid == 0) {   // read back after the chain, so no register holds them
+    s_samp[0] = first;
+    s_samp[1] = step;
+    s_samp[2] = n_samp;
+  }
+
+  unsigned valid = 0u;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+    if (lane0 + r < lim) valid |= 1u << r;
+  unsigned m = decided ? 0u : valid;   // rows still in the conjunction
+  unsigned gor = 0u;                   // OR accumulator of the open group
   __syncthreads();
 
   // ----------------------------------------------------------- chain lane
+  float* list = s_list[warp];
   for (int k = 0; k < n_preds; ++k) {
-    const int p = s_perm[k];
-    const bool is_first = k == 0 || s_group[s_perm[k - 1]] != s_group[p];
-    const bool closes =
-        k == n_preds - 1 || s_group[s_perm[k + 1]] != s_group[p];
-    bool pend[kRows];
-    int local = 0;
+    const int sk = s_step[k];
+    const int p = sk & 0xff;
+    const bool is_first = sk & 0x100;
+    const unsigned pend = is_first ? m : (m & ~gor);
+    const int n_pend = __popc(pend);
+    const int w_pend = __reduce_add_sync(0xffffffffu, n_pend);
+    unsigned res = 0u;
+    if (w_pend > 0) {  // warp-uniform: a warp with no pending row skips
+      if (lane == 0) atomicAdd(&s_alive[k], w_pend);
+      const int c = s_col[p];
+      if (pend != 0u && c != xcol) {  // settled, decided rows load nothing
+        load_rows(cols + c * row_stride + tile_base + lane0, x);
+        xcol = c;
+      }
+      const int o = s_op[p];
+      const float a = s_t1[p];
+      if (o < 0 || o > 3) {
+        // HASHMIX: the warp's pending values go to its work list and are
+        // evaluated 32 at a time on all lanes, then the bits come back
+        const int at = warp_exclusive_sum(n_pend, lane);
+        int j = at;
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      pend[r] = is_first ? m[r] : (m[r] && !gor[r]);
-      local += pend[r];
+        for (int r = 0; r < kRows; ++r)
+          if (pend >> r & 1u) list[j++] = x[r];
+        __syncwarp();
+        const int rn = s_rounds[p] < 1 ? 1 : s_rounds[p];
+        for (int i = lane; i < w_pend; i += 32)
+          list[i] = hashmix(list[i], rn) > a ? 1.0f : 0.0f;
+        __syncwarp();
+        j = at;
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+          if (pend >> r & 1u) res |= (list[j++] != 0.0f ? 1u : 0u) << r;
+        __syncwarp();
+      } else if (pend != 0u) {
+        const float b = s_t2[p];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+          if ((pend >> r & 1u) && eval_pred(x[r], o, a, b, 1))
+            res |= 1u << r;
+      }
     }
-    block_add(&s_alive[k], local);
-    __syncthreads();
-    const int alive = s_alive[k];
-    if (tid == 0) active[static_cast<long long>(t) * n_preds + k] =
-        static_cast<float>(alive);
-    bool res[kRows];
-    if (alive > 0 && local > 0) {  // alive: block-uniform tile short-circuit;
-      float x[kRows];              // local: a thread with no pending row
-                                   // (settled or decided) loads nothing
-      load_rows(cols + s_col[p] * row_stride + tile_base + lane0, x);
-      const int o = s_op[p], rn = s_rounds[p];
-      const float a = s_t1[p], b = s_t2[p];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        res[r] = pend[r] && eval_pred(x[r], o, a, b, rn);
-    } else {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) res[r] = false;
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      gor[r] = is_first ? res[r] : (gor[r] || res[r]);
-      if (closes) m[r] = m[r] && gor[r];
-    }
+    gor = is_first ? res : (gor | res);
+    if (sk & 0x200) m &= gor;
   }
 
-  if (pass) {  // provably passing sub-tile: its valid rows survive
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) m[r] = m[r] || valid[r];
+  // --------------------------------------------------------- monitor lane
+  // every predicate on every sampled row; a ballot gives the row's failing
+  // set, and lane g counts group g when it holds every member
+  {
+    const int first = s_samp[0], step = s_samp[1], n_samp = s_samp[2];
+    unsigned n_cut = 0u, n_gcut = 0u;
+    for (int i = warp; i < n_samp; i += kWarps) {
+      float v = mv;
+      if (i != warp && lane < n_preds)
+        v = cols[s_col[lane] * row_stride + tile_base + first + i * step];
+      const bool fails =
+          lane < n_preds &&
+          !eval_pred(v, s_op[lane], s_t1[lane], s_t2[lane], s_rounds[lane]);
+      const unsigned fb = __ballot_sync(0xffffffffu, fails);
+      n_cut += fails;
+      if (lane < n_groups && (fb & s_members[lane]) == s_members[lane])
+        ++n_gcut;
+    }
+    if (n_cut) atomicAdd(&s_cut[lane], static_cast<int>(n_cut));
+    if (n_gcut) atomicAdd(&s_gcut[lane], static_cast<int>(n_gcut));
   }
 
-  int8_t* mrow = mask_out + tile_base + lane0;
+  if (pass) m |= valid;  // provably passing sub-tile: its valid rows survive
+
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) mrow[r] = m[r] ? 1 : 0;
+  for (int r = 0; r < kRows; r += 8)   // 8 mask bytes per store
+    *reinterpret_cast<uint2*>(mask_out + tile_base + lane0 + r) =
+        make_uint2(bits_to_bytes(m >> r), bits_to_bytes(m >> (r + 4)));
 
   // ------------------------------------------------- in-tile compaction
   if (packed != nullptr) {
-    int local = 0;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) local += m[r];
     int prefix = 0, total = 0;
-    BlockScan(s_scan).ExclusiveSum(local, prefix, total);
+    BlockScan(s_scan).ExclusiveSum(__popc(m), prefix, total);
     for (int c = 0; c < n_cols; ++c) {
-      const float* src = cols + c * row_stride + tile_base + lane0;
       float* dst = packed + c * row_stride + tile_base;
-      int d = prefix;
+      if (m != 0u) {
+        float v[kRows];
+        if (c == xcol) {
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        if (m[r]) dst[d++] = src[r];
+          for (int r = 0; r < kRows; ++r) v[r] = x[r];
+        } else {
+          load_rows(cols + c * row_stride + tile_base + lane0, v);
+        }
+        int d = prefix;
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        if (lane0 + r >= total) dst[lane0 + r] = fill;
+        for (int r = 0; r < kRows; ++r)
+          if (m >> r & 1u) dst[d++] = v[r];
+      }
+      if (lane0 >= total) {
+        const float4 f4 = make_float4(fill, fill, fill, fill);
+#pragma unroll
+        for (int r = 0; r < kRows; r += 4)
+          *reinterpret_cast<float4*>(dst + lane0 + r) = f4;
+      } else {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+          if (lane0 + r >= total) dst[lane0 + r] = fill;
+      }
     }
     if (tid == 0) cnt[t] = total;
   }
 
-  // --------------------------------------------------------- monitor lane
-  int tile_stride = collect_rate * 128 / kTile;
-  if (tile_stride < 1) tile_stride = 1;
-  const bool block_tile = (t + phase) % tile_stride == 0;
-  bool samp[kRows];
-  int ls = 0;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int lane = lane0 + r;
-    const long long gidx = tile_base + lane;
-    const bool row_s = (gidx + phase) % collect_rate == 0;
-    const bool blk_s = block_tile && lane < 128;
-    samp[r] = (block_mode == 1 ? blk_s : row_s) && valid[r];
-    ls += samp[r];
-  }
-  block_add(&s_nsamp, ls);
   __syncthreads();
-  const int n_samp = s_nsamp;
-  if (n_samp > 0) {
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (!samp[r]) continue;
-      const long long row = tile_base + lane0 + r;
-      unsigned fails = 0u;
-      for (int q = 0; q < n_preds; ++q) {
-        const float x = cols[s_col[q] * row_stride + row];
-        if (!eval_pred(x, s_op[q], s_t1[q], s_t2[q], s_rounds[q]))
-          fails |= 1u << q;
-      }
-      for (int q = 0; q < n_preds; ++q)
-        if (fails >> q & 1u) atomicAdd(&s_cut[q], 1);
-      for (int g = 0; g < n_groups; ++g)
-        if ((fails & s_members[g]) == s_members[g]) atomicAdd(&s_gcut[g], 1);
-    }
-  }
-  __syncthreads();
-  if (tid == 0) nmon[t] = static_cast<float>(n_samp);
-  if (tid < n_preds)
+  if (tid == 0) nmon[t] = static_cast<float>(s_samp[2]);
+  if (tid < n_preds) {
+    active[static_cast<long long>(t) * n_preds + tid] =
+        static_cast<float>(s_alive[tid]);
     cut[static_cast<long long>(t) * n_preds + tid] =
         static_cast<float>(s_cut[tid]);
+  }
   if (tid < n_groups)
     gcut[static_cast<long long>(t) * n_groups + tid] =
         static_cast<float>(s_gcut[tid]);

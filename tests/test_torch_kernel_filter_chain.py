@@ -304,3 +304,88 @@ def test_stats_and_skip_chain_kernels_match_twins_on_card(n_rows):
                 for name, g, w in zip(OUT_NAMES, got, want):
                     assert torch.equal(g, w), (name, mode, compact)
     torch.cuda.synchronize()
+
+
+HAZARD_ROWS = 2048 * 41 + 13            # not a multiple of 8, 32 or 2048
+
+
+def hazard_case(label, dev):
+    """(padded f32[4, Rp], specs, perm, meta) of one of the chain kernel's
+    hazards at HAZARD_ROWS rows."""
+    n = HAZARD_ROWS
+    cols = cols_for(n, seed=4)
+    mix = TP.MIX_MOD
+    meta = [n, 1000, 7, 0]
+    if label == "warps_without_pending_rows":
+        # column 0 sorted inside every full tile: the GT cuts whole warps
+        # while the rest of the tile stays pending
+        full = n // 2048 * 2048
+        order = np.argsort(cols[0, :full].reshape(-1, 2048), axis=1,
+                           kind="stable") + np.arange(0, full, 2048)[:, None]
+        cols[:, :full] = cols[:, order.reshape(-1)]
+        preds = [TP.Predicate("gt", 0, TP.OP_GT, 0.6),
+                 TP.Predicate("lt", 1, TP.OP_LT, 0.3, group="or"),
+                 TP.Predicate("mix", 3, TP.OP_HASHMIX, 0.45 * mix, rounds=24,
+                              group="or")]
+        perm = [0, 2, 1]
+    elif label == "p_g_32":                    # 32 singleton groups
+        preds = []
+        for i in range(tfc.MAX_PREDS):
+            if i % 4 == 0:
+                preds.append(TP.Predicate(f"gt{i}", 0, TP.OP_GT,
+                                          0.01 * (i % 7)))
+            elif i % 4 == 1:
+                preds.append(TP.Predicate(f"lt{i}", 1, TP.OP_LT,
+                                          1 - 0.01 * (i % 7)))
+            elif i == 30:
+                preds.append(TP.Predicate(f"eq{i}", 2, TP.OP_EQ, 3.0))
+            elif i % 4 == 2:
+                preds.append(TP.Predicate(f"bet{i}", 2, TP.OP_BETWEEN,
+                                          -0.5 + (i % 3 == 0), t2=7.5))
+            else:
+                preds.append(TP.Predicate(f"mix{i}", 3, TP.OP_HASHMIX,
+                                          0.03 * mix, rounds=1 + i % 24))
+        perm = np.random.default_rng(32).permutation(tfc.MAX_PREDS).tolist()
+        meta = [n, 37, 3, 0]
+    elif label == "hashmix_first":             # every row pending at it
+        preds = [TP.Predicate("gt", 0, TP.OP_GT, 0.2),
+                 TP.Predicate("lt", 1, TP.OP_LT, 0.3, group="or"),
+                 TP.Predicate("mix", 3, TP.OP_HASHMIX, 0.45 * mix, rounds=24,
+                              group="or")]
+        perm = [2, 1, 0]
+    else:                                      # the grouped six-chain
+        preds = chain(TP, 6, ("a", "a", None, "b", "b", None))
+        perm = [4, 3, 2, 5, 1, 0]
+        if label == "block_mode_stride_1":     # collect_rate 16: stride 1
+            meta = [n, 16, 5, 1]
+    padded = torch.nn.functional.pad(torch.from_numpy(cols).to(dev),
+                                     (0, (-n) % 2048))
+    return (padded, TP.pack(preds, dev),
+            torch.tensor(perm, dtype=torch.int32, device=dev),
+            torch.tensor(meta, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", [
+    "ragged_rows", "warps_without_pending_rows", "p_g_32",
+    "block_mode_stride_1", "hashmix_first"])
+def test_chain_kernel_hazards_match_twin_on_card(label):
+    """The chain kernel's hazards, small (``chip_smoke.py`` phase 2c holds
+    the same kinds at a larger width): every output of the mask-only,
+    packed and skip variants bit-identical to the twin, the skip decisions
+    mixing pass, fail and ambiguous sub-tiles in every tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    dev = torch.device("cuda")
+    padded, specs, perm, meta = hazard_case(label, dev)
+    sub = torch.arange(padded.shape[1] // tfc.STAT_TILE, device=dev) % 3
+    mixed = ((sub == 0).to(torch.int32), (sub == 1).to(torch.int32))
+    for dec in (None, mixed):
+        for compact in (False, True):
+            kw = dict(compact=compact, fill=-1.0, skip_decisions=dec)
+            got = tfc.filter_chain_kernel(padded, specs, perm, meta, **kw)
+            want = tfc.filter_chain_twin(padded, specs, perm, meta, **kw)
+            for name, g, w in zip(OUT_NAMES, got, want):
+                assert g.dtype == w.dtype and g.shape == w.shape, name
+                assert torch.equal(g, w), (name, dec is None, compact)
+    torch.cuda.synchronize()

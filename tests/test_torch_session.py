@@ -248,6 +248,36 @@ def test_v2_blobs_cross_restore_both_ways():
     assert torch.equal(v1.perm, t_state.perm)
 
 
+def test_auto_capacity_retunes_on_the_first_step_after_a_restore():
+    """repro retunes ``capacity="auto"`` on any step whose state's epoch is
+    past the last one it tuned for, so the first step after restoring an
+    epoch-1 blob retunes; the port must too, though its host mirror sees
+    no boundary fire on that step."""
+    order = dict(ORDER, calculate_rate=12288)
+    kw = dict(compact=True, capacity="auto")
+    r_make = lambda: R.build_session(R.FilterPlan(  # noqa: E731
+        R_paper.filter_chain("cnf"), R.OrderingConfig(**order),
+        engine="jnp", **kw))
+    batches = [b.columns for b in t_stream()][:6]
+    src = r_make()
+    blob = src.save_state(_steps(src, src.init_state(), batches[:4]))
+    assert int(blob["arrays"]["epoch"]) == 1
+    r_sess = r_make()
+    t_sess = T.build_session(T.FilterPlan(
+        T_paper.filter_chain("cnf"), T.OrderingConfig(**order),
+        engine="torch", **kw), device="cpu")
+    r_state, t_state = r_sess.restore_state(blob), t_sess.restore_state(blob)
+    caps = []
+    for b in batches[4:]:
+        r_state, r_res = r_sess.step(r_state, b)
+        t_state, t_res = t_sess.step(t_state, torch.from_numpy(b))
+        assert t_res.capacity == r_res.capacity
+        assert tuple(t_res.packed.shape) == tuple(r_res.packed.shape)
+        np.testing.assert_array_equal(_np(t_res.packed), _np(r_res.packed))
+        caps.append(t_res.capacity)
+    assert caps[1] < BATCH          # the retune narrowed the buffer
+
+
 def test_restore_rejects_corruption_and_foreign_plans():
     t_sess = T.build_session(t_plan(engine="torch"), device="cpu")
     blob = t_sess.save_state(_steps(

@@ -8,9 +8,12 @@ four phases; any failure exits non-zero:
 
 1. Device: the card's name and power limit, torch and CUDA versions; the
    kernels are built from ``src/repro_torch/kernels/filter_chain/csrc``
-   with nvcc and ptxas's register / shared-memory / spill report printed;
-   ``cuobjdump -sass`` of the chain kernel must hold no FFMA (HASHMIX
-   rounds every step on its own, and no float division is left).
+   with nvcc and ptxas's register / shared-memory / spill report printed
+   (the gather kernel's lines again on their own); ``cuobjdump -sass`` of
+   the chain kernel must hold no FFMA (HASHMIX rounds every step on its
+   own, and no float division is left), and of the gather kernel no CALL
+   (no division routine). These two checks fail the run after phase 4,
+   so a kernel that fails them is still measured.
 2. Kernel vs twin: the chain and gather kernels against their plain
    PyTorch twins on the card — ragged width (4,194,304 + 777 rows),
    P in {1, 3, 6} with HASHMIX and an OR group, row and block monitor
@@ -26,6 +29,13 @@ four phases; any failure exits non-zero:
    tiles, P = G = 32, block mode with tile_stride 1 and a nonzero phase,
    HASHMIX first — each mask only, packed, and with skip decisions that
    mix pass, fail and ambiguous sub-tiles in every tile (bit-identical).
+   Then the gather kernel's hazards (``repro_torch.kernels.filter_chain.
+   gather_cases``, which the tests share): capacity 1, 3, 5 and
+   4,194,303, ``n_kept`` 0, equal to the capacity and one below it, a
+   tile straddling the capacity, one tile, one and five columns, a fill
+   of -0.0 and of NaN; each written into a freed block of a NaN payload,
+   so an unwritten slot shows, and compared with the twin through
+   ``view(torch.int32)``.
 3. The stream: the paper's workload as users run it — ``LogStream`` with
    seed 0 and regime drift (period 750,000 rows, amplitude 1.5), 18
    batches of 2^22 rows x 3 f32 columns (75.5M rows), through
@@ -49,7 +59,10 @@ four phases; any failure exits non-zero:
    PyTorch yardstick (the chain rows with two bounds: the rows this batch
    needs, and every column read once); the mask-only chain kernel's time
    split by varying its inputs (no sampled row, HASHMIX cut to one round,
-   one predicate beside a one-pass PyTorch compare); end-to-end rows/s of
+   one predicate beside a one-pass PyTorch compare); the gather's time
+   split the same way (copy only, fill only, the ``fill_`` yardstick, a
+   saturating and a lossless capacity; ``split`` in its JSON row);
+   end-to-end rows/s of
    ``session.step`` for every
    plan, and of the tier on vs off in 6 alternating pairs on ``cuda``;
    device-busy share and kernels per step; device→host syncs per
@@ -111,14 +124,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    smi = phase_device(torch)
+    smi, sass_failures = phase_device(torch)
     errs = phase_kernels_vs_twins(torch, dev)
     errs.update(phase_skip_kernels_vs_twins(torch, dev))
     phase_hazards(torch, dev, errs)
+    phase_gather_hazards(torch, dev, errs)
     runs = phase_stream(torch, dev)
     runs["skip"] = phase_skip_stream(torch, dev,
                                      runs["batches"][:N_SKIP_BATCHES])
     kernels = phase_numbers(torch, dev, runs, errs)
+    check(not sass_failures, "phase 1: " + "; ".join(sass_failures))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
@@ -128,7 +143,7 @@ def main() -> int:
 
 
 # ===================================================================== 1
-def phase_device(torch) -> str:
+def phase_device(torch) -> tuple[str, list]:
     from repro_torch.kernels.filter_chain import filter_chain as fc
 
     log("== phase 1: device")
@@ -148,22 +163,19 @@ def phase_device(torch) -> str:
     for line in lib.log.splitlines():
         if line.strip():
             log(f"  {line}")
-    _check_chain_sass(fc, lib.path)
-    return smi
+    return smi, _check_sass(fc, lib)
 
 
-def _check_chain_sass(fc, library: Path) -> None:
-    """The chain kernel's machine code holds no FFMA: a fused multiply-add
-    would be a HASHMIX step contracted (its rounding differs from the
-    twin's) or the refinement of a float division, which the kernel
-    replaces by an exact multiply. MUFU.RCP stays for integer modulos."""
+def _sass_opcodes(fc, library: Path, kernel: str) -> list:
+    """The opcodes of ``kernel``'s body in ``cuobjdump -sass`` of the
+    library."""
     cuobjdump = Path(fc._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(library)],
                           capture_output=True, text=True,
                           check=True).stdout
     body = next((part for part in sass.split("Function : ")
-                 if "chain_kernel" in part.split("\n", 1)[0]), None)
-    check(body is not None, "cuobjdump shows no chain_kernel")
+                 if kernel in part.split("\n", 1)[0]), None)
+    check(body is not None, f"cuobjdump shows no {kernel}")
     opcodes = []     # "/*0220*/  @!P0 FADD R1, R2, R3 ;  /* 0x... */"
     for line in body.splitlines():
         words = line.split("*/", 1)[1].split() if "*/" in line else []
@@ -171,11 +183,48 @@ def _check_chain_sass(fc, library: Path) -> None:
             words = words[1:]
         if words and not words[0].startswith("/*"):
             opcodes.append(words[0])
-    count = {name: sum(o.startswith(name) for o in opcodes)
-             for name in ("FFMA", "FMUL", "FADD", "FRND", "MUFU.RCP",
-                          "CALL")}
-    log(f"  chain_kernel SASS: {len(opcodes)} instructions; {count}")
-    check(count["FFMA"] == 0, "chain_kernel's SASS holds an FFMA")
+    return opcodes
+
+
+def _ptxas_lines(log_text: str, kernel: str) -> list:
+    """ptxas's report for ``kernel``: the lines from its "Compiling entry
+    function" line up to the next kernel's."""
+    lines, inside = [], False
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            inside = kernel in line
+        if inside and line.strip():
+            lines.append(line.strip())
+    return lines
+
+
+def _check_sass(fc, lib) -> list:
+    """Machine-code checks; returns the failures found, which ``main``
+    raises after phase 4 so that a failing kernel is still measured.
+
+    * ``chain_kernel`` holds no FFMA: a fused multiply-add would be a
+      HASHMIX step contracted (its rounding differs from the twin's) or
+      the refinement of a float division, which the kernel replaces by an
+      exact multiply. MUFU.RCP stays for integer modulos.
+    * ``compact_gather_kernel`` holds no CALL: a call there is a division
+      routine (the 64-bit one an index split by ``/`` and ``%`` brings)
+      back on every element of the fill."""
+    failures = []
+    names = ("FFMA", "FMUL", "FADD", "FRND", "MUFU.RCP", "CALL")
+    for kernel, banned in (("chain_kernel", "FFMA"),
+                           ("compact_gather_kernel", "CALL")):
+        opcodes = _sass_opcodes(fc, lib.path, kernel)
+        count = {name: sum(o.startswith(name) for o in opcodes)
+                 for name in names}
+        count["STG .128"] = sum(o.startswith("STG") and o.endswith(".128")
+                                for o in opcodes)
+        log(f"  {kernel} SASS: {len(opcodes)} instructions; {count}")
+        if count[banned]:
+            failures.append(f"{kernel}'s SASS holds {count[banned]} "
+                            f"{banned}")
+    for line in _ptxas_lines(lib.log, "compact_gather_kernel"):
+        log(f"  compact_gather_kernel ptxas: {line}")
+    return failures
 
 
 # ===================================================================== 2
@@ -483,6 +532,37 @@ def phase_hazards(torch, dev, errs: dict, n_rows: int = HAZARD_ROWS) -> None:
         log(f"  {label}: mask, pack and skip (pass/fail/ambiguous "
             f"sub-tiles in every tile) bit-identical; "
             f"{int(got[6].sum())} survivors with the skip decisions")
+
+
+def phase_gather_hazards(torch, dev, errs: dict,
+                         n_rows: int = HAZARD_ROWS) -> None:
+    """The gather kernel on its hazard cases (``gather_cases``), bit for
+    bit (through ``view(torch.int32)``) against the twin, each written
+    into the freed block of a NaN-payload sentinel so that an unwritten
+    slot shows; raises ``errs["gather"]`` to the largest |kernel - twin|
+    seen."""
+    from repro_torch.kernels.filter_chain import filter_chain as fc
+    from repro_torch.kernels.filter_chain import gather_cases
+
+    log(f"== phase 2c: gather kernel hazards (packs of {n_rows} rows)")
+    for label in gather_cases.HAZARDS + gather_cases.HAZARDS_WIDE:
+        packed, off, cnt, cap, fill = gather_cases.hazard(label, n_rows,
+                                                          device=dev)
+        got, in_sentinel = gather_cases.gather_in_sentinel(packed, off, cnt,
+                                                           cap, fill)
+        check(in_sentinel, f"the allocator did not hand the gather the "
+              f"sentinel's block: {label}")
+        want = fc.compact_gather_twin(packed, off, cnt, cap, fill=fill)
+        torch.cuda.synchronize()
+        check(got.dtype == want.dtype and got.shape == want.shape,
+              f"gather output has the wrong type: {label}")
+        errs["gather"] = max(errs["gather"], _max_abs_err(torch, got, want))
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"gather kernel != twin: {label}")
+        total = int(cnt.sum())
+        log(f"  {label}: {packed.shape[0]} columns, {cnt.numel()} tiles, "
+            f"capacity {cap}, {min(total, cap)} of {total} kept, fill "
+            f"{fill}: bit-identical")
 
 
 # ===================================================================== 3
@@ -906,6 +986,53 @@ def _chain_split(torch, dev, batches, chain, perm, ms_a: float) -> None:
         log(f"  split {label}: {ms:.4f} ms ({ms / ms_a:.1%} of (a))")
 
 
+def _gather_split(torch, dev, packs, cap: int, ms_a: float) -> dict:
+    """``compact_gather_kernel``'s time split by its inputs on the same
+    packs (the chain kernel's, of 4 paper batches): (a) as on the main
+    path; (b) copy only, capacity = n_kept of each batch, so no fill;
+    (c) fill only, counts and offsets zero, so all of [C, cap] is fill;
+    (d) the write yardstick ``torch.empty(C, cap).fill_(0.0)``, one
+    PyTorch call writing the same bytes (timed here, never called by the
+    port); then a saturating and a lossless capacity. Each with batch 0's
+    rows kept and its byte bound: survivors read and [C, cap] written once,
+    plus the per-tile offsets and counts."""
+    from repro_torch.kernels.filter_chain import filter_chain as fc
+
+    n_cols, n_rows_p = packs[0][0].shape
+    tile_bytes = 2 * 4 * (n_rows_p // fc.DEFAULT_TILE)
+    total = int(packs[0][2].sum())
+
+    def row(ms, kept, capacity, extra=tile_bytes):
+        bound = _bound(n_cols * (kept + capacity) * 4 + extra, 0)[0]
+        return dict(ms=ms, bound_ms=bound, kept=kept, capacity=capacity)
+
+    def kernel(sets):
+        return _device_ms(torch, fc.compact_gather_kernel, sets, 40)
+
+    zero = torch.zeros_like(packs[0][2])
+    split = {
+        "a": row(ms_a, min(total, cap), cap),
+        "b": row(kernel([(p, o, c, int(c.sum())) for p, o, c in packs]),
+                 total, total),
+        "c": row(kernel([(p, zero, zero, cap) for p, _, _ in packs]), 0,
+                 cap),
+        "d": row(_device_ms(torch, lambda: torch.empty(
+            n_cols, cap, device=dev).fill_(0.0), [()], 40), 0, cap, 0),
+    }
+    for capacity in (262_144, 524_288):
+        split[f"capacity {capacity}"] = row(
+            kernel([(p, o, c, capacity) for p, o, c in packs]),
+            min(total, capacity), capacity)
+    names = {"a": "(a) as on the main path", "b": "(b) copy only",
+             "c": "(c) fill only", "d": "(d) yardstick empty().fill_()"}
+    for key, r in split.items():
+        log(f"  gather split {names.get(key, key)}: {r['ms']:.4f} ms "
+            f"({r['ms'] / ms_a:.1%} of (a)); capacity {r['capacity']}, "
+            f"{r['kept']} kept; bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_ms'] / r['ms']:.1%} of bound)")
+    return split
+
+
 def phase_numbers(torch, dev, runs, errs) -> list:
     from repro_torch.configs.paper_filters import filter_chain
     from repro_torch.core import pack
@@ -978,33 +1105,33 @@ def phase_numbers(torch, dev, runs, errs) -> list:
         if not compact:
             _chain_split(torch, dev, batches, chain, perm, ms)
 
-    # gather at the stream's auto capacity
+    # gather at the stream's auto capacity, and its time split by inputs
     cap = runs["auto"]["cuda"]["steps"][-1]["capacity"]
-    gather_sets, kept = [], []
+    packs = []
     for b, m in zip(batches, metas):
         *_, packed, cnt = fc.filter_chain_kernel(b, specs, perm, m,
                                                  compact=True)
         cnt = cnt[:, 0]
-        off = torch.cumsum(cnt, 0, dtype=torch.int32) - cnt
-        gather_sets.append((packed, off, cnt, cap))
-        kept.append(min(int(cnt.sum()), cap))
+        packs.append((packed, torch.cumsum(cnt, 0, dtype=torch.int32) - cnt,
+                      cnt))
+    gather_sets = [(p, o, c, cap) for p, o, c in packs]
     masks = [(b, fc.filter_chain_kernel(b, specs, perm, m)[0][0].bool())
              for b, m in zip(batches, metas)]
     ms = _device_ms(torch, fc.compact_gather_kernel, gather_sets, 40)
     plain = _device_ms(torch, fc.compact_gather_twin, gather_sets, 4)
     library = _device_ms(torch, lambda b, m: b[:, m], masks, 8)
-    moved = n_cols * kept[0] * 4 + n_cols * cap * 4 \
-        + 2 * 4 * (rows // fc.DEFAULT_TILE)
-    bound_ms, bound_by = _bound(moved, 0)
+    split = _gather_split(torch, dev, packs, cap, ms)
+    bound_ms = split["a"]["bound_ms"]
     out.append(dict(name="compact_gather", route="cuda", source=SOURCE,
                     replaces=f"{TPU_SOURCE}:372",
                     launches=runs["auto"]["cuda"]["launches"][1],
                     max_abs_err=errs["gather"], ms=ms, plain_ms=plain,
-                    bound_ms=bound_ms, bound_by=bound_by,
-                    library_ms=library))
+                    bound_ms=bound_ms, bound_by="bytes",
+                    library_ms=library, split=split))
     log(f"  compact_gather: {ms:.4f} ms/launch at capacity {cap} "
-        f"({kept[0]} survivors kept; bound {bound_ms:.4f} ms by bytes); "
-        f"twin {plain:.4f} ms; boolean-mask index {library:.4f} ms")
+        f"({split['a']['kept']} survivors kept; bound {bound_ms:.4f} ms by "
+        f"bytes, {bound_ms / ms:.1%} of bound); twin {plain:.4f} ms; "
+        f"boolean-mask index {library:.4f} ms")
     for label in ("off", "auto"):
         for engine in ("cuda", "torch"):
             r = runs[label][engine]

@@ -72,15 +72,33 @@
 // compact_gather_kernel  replaces  _gather_kernel, launched by
 //               compact_gather_pallas, filter_chain.py:372 and :396.
 //
-//   The TPU kernel relies on its grid running in order: each step stores a
-//   whole packed tile and the next step overwrites the fill tail. CUDA
-//   blocks run in no order, so here block t stores exactly
-//   min(cnt[t], cap - off[t]) survivors at off[t], and the slots
-//   [n_kept, cap) are written with `fill` by a grid-stride loop. Every
-//   output slot is written exactly once.
+//   Stitches the per-tile packs into f32[C, cap]: tile t stores exactly
+//   min(cnt[t], cap - off[t]) survivors of each column at off[t], and the
+//   slots [n_kept, cap) of every column hold `fill`. The TPU kernel lets
+//   each in-order grid step overwrite the previous tile's tail; CUDA
+//   blocks run in no order, so here every output slot is written exactly
+//   once.
 //
-//   Bound: survivor bytes read plus C*cap*4 bytes written; coalesced
-//   copies along each column row.
+//   Bound: device memory, the survivors read once and C*cap*4 bytes
+//   written. Where the capacity is the batch width (`capacity="auto"` on
+//   2^22-row batches) ~92% of those bytes are the fill, so the kernel is a
+//   write stream with a small copy beside it.
+//
+//   What the design does about it:
+//     * the fill first, per column: a 64-bit column base, a 32-bit index
+//       and no division or modulo; a scalar head up to the first 16-byte
+//       aligned slot (a column row starts at c*cap + n_kept), float4
+//       streaming stores (__stcs: the buffer is not read back here), a
+//       scalar tail;
+//     * a grid of one float4 of each column's fill per thread, capped at
+//       4 waves of the card (8 x 256 threads per SM): the blocks start in
+//       order and write one front through each column, where a single
+//       wave striding over the whole buffer was 2 us slower;
+//     * then the copy, block-strided over tiles, at most 2 tiles per
+//       block; a thread loads its slot of every column (kGatherCols at a
+//       time) before it stores any. After the fill its latency hides
+//       behind the stores still draining; with little fill, half as many
+//       blocks as tiles halve the blocks waiting on a round trip.
 //
 // tile_stats_kernel  replaces  _stats_kernel, launched by
 //               tile_stats_pallas, filter_chain.py:75 and :92.
@@ -108,6 +126,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <atomic>
+
 #include <cub/block/block_scan.cuh>
 
 namespace {
@@ -119,6 +140,10 @@ constexpr int kTile = kThreads * kRows;  // 2048: the logical tile
 constexpr int kMaxPreds = 32;  // predicate sets are 32-bit masks
 constexpr int kStatTile = 128;           // zone-map sub-tile (STAT_TILE)
 constexpr int kStatPerWarp = 4;          // sub-tiles reduced by one warp
+constexpr int kGatherResident = 8;       // 8 x 256 threads fill an SM
+constexpr int kGatherWaves = 4;          // the gather's grid, in waves
+constexpr int kGatherTilesPerBlock = 2;  // the copy's share of a block
+constexpr int kGatherCols = 4;           // columns loaded before a store
 
 constexpr float kMixMul = 1.0000019073486328f;
 constexpr float kMixAdd = 0.31830987334251404f;
@@ -468,32 +493,55 @@ __global__ void __launch_bounds__(kThreads) tile_stats_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kThreads) compact_gather_kernel(
-    const float* __restrict__ packed, int n_cols, long long row_stride,
-    int tile, int n_tiles, const int* __restrict__ offsets,
-    const int* __restrict__ counts, int capacity, float fill,
-    float* __restrict__ out) {
-  const int t = blockIdx.x;
+__global__ void __launch_bounds__(kThreads, kGatherResident)
+    compact_gather_kernel(const float* __restrict__ packed, int n_cols,
+                          long long row_stride, int n_tiles,
+                          const int* __restrict__ offsets,
+                          const int* __restrict__ counts, int capacity,
+                          float fill, float* __restrict__ out) {
   const long long total =
       static_cast<long long>(offsets[n_tiles - 1]) + counts[n_tiles - 1];
-  const long long n_kept = total < capacity ? total : capacity;
-  const int off = offsets[t];
-  if (off < capacity) {
-    const int room = capacity - off;
-    const int n = counts[t] < room ? counts[t] : room;
-    for (int c = 0; c < n_cols; ++c) {
-      const float* src = packed + c * row_stride +
-                         static_cast<long long>(t) * tile;
-      float* dst = out + static_cast<long long>(c) * capacity + off;
-      for (int j = threadIdx.x; j < n; j += blockDim.x) dst[j] = src[j];
-    }
+  const int n_kept = total < capacity ? static_cast<int>(total) : capacity;
+
+  // the fill of [n_kept, cap) in each column: a scalar head up to the
+  // first 16-byte aligned slot, float4 stores, a scalar tail
+  const int len = capacity - n_kept;
+  const int stride = gridDim.x * kThreads;
+  const int first = blockIdx.x * kThreads + threadIdx.x;
+  const float4 f4 = make_float4(fill, fill, fill, fill);
+  for (int c = 0; c < n_cols; ++c) {
+    float* row = out + static_cast<long long>(c) * capacity + n_kept;
+    const unsigned misaligned =
+        static_cast<unsigned>(reinterpret_cast<uintptr_t>(row) >> 2) & 3u;
+    const int head = min(static_cast<int>((4u - misaligned) & 3u), len);
+    const int n4 = (len - head) >> 2;
+    if (first < head) row[first] = fill;
+    float4* body = reinterpret_cast<float4*>(row + head);
+    for (int i = first; i < n4; i += stride) __stcs(body + i, f4);
+    const int done = head + 4 * n4;
+    if (first < len - done) row[done + first] = fill;
   }
-  const long long tail = capacity - n_kept;
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(t) * blockDim.x + threadIdx.x;
-       i < tail * n_cols; i += step) {
-    const long long c = i / tail, j = i % tail;
-    out[c * capacity + n_kept + j] = fill;
+
+  // the copy: block b stitches tiles b, b + gridDim.x, ...; tile t stores
+  // min(cnt[t], cap - off[t]) survivors of each column at off[t]
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int off = offsets[t];
+    if (off >= capacity) continue;
+    const int n = min(counts[t], capacity - off);
+    const float* src = packed + static_cast<long long>(t) * kTile;
+    float* dst = out + off;
+    for (int j = threadIdx.x; j < n; j += kThreads) {
+      for (int c0 = 0; c0 < n_cols; c0 += kGatherCols) {
+        float v[kGatherCols];
+#pragma unroll
+        for (int k = 0; k < kGatherCols; ++k)
+          if (c0 + k < n_cols) v[k] = src[(c0 + k) * row_stride + j];
+#pragma unroll
+        for (int k = 0; k < kGatherCols; ++k)
+          if (c0 + k < n_cols)
+            dst[static_cast<long long>(c0 + k) * capacity + j] = v[k];
+      }
+    }
   }
 }
 
@@ -539,9 +587,29 @@ extern "C" int compact_gather_launch(const float* packed, int n_cols,
                                      float fill, float* out, void* stream) {
   if (tile != kTile || n_tiles < 1 || capacity < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  // the SM count, read on the first launch only: the grid size paces the
+  // grid-stride loops and nothing else, so it holds on any card
+  static std::atomic<int> sm_count{0};
+  int n_sm = sm_count.load(std::memory_order_relaxed);
+  if (n_sm == 0) {
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                   device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sm_count.store(n_sm, std::memory_order_relaxed);
+  }
+  // kGatherTilesPerBlock tiles or one float4 of each column's fill per
+  // thread, whichever needs more blocks; at most kGatherWaves waves
+  const long long want = std::max<long long>(
+      (n_tiles + kGatherTilesPerBlock - 1) / kGatherTilesPerBlock,
+      (capacity + 4LL * kThreads - 1) / (4LL * kThreads));
+  const int blocks = static_cast<int>(std::min<long long>(
+      want, static_cast<long long>(n_sm) * kGatherResident * kGatherWaves));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  compact_gather_kernel<<<n_tiles, kThreads, 0, s>>>(
-      packed, n_cols, row_stride, tile, n_tiles, offsets, counts, capacity,
-      fill, out);
+  compact_gather_kernel<<<blocks, kThreads, 0, s>>>(
+      packed, n_cols, row_stride, n_tiles, offsets, counts, capacity, fill,
+      out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import predicates as TP  # noqa: E402
 from repro_torch.kernels.filter_chain import filter_chain as tfc  # noqa: E402
+from repro_torch.kernels.filter_chain import gather_cases  # noqa: E402
 from repro_torch.kernels.filter_chain import ops as t_ops  # noqa: E402
 
 OUT_NAMES = ("mask", "active", "cut", "gcut", "nmon", "packed", "cnt")
@@ -153,6 +154,22 @@ def test_gather_twin_matches_pallas(ref, n_rows, tile, capacity, saturates):
     got = tfc.compact_gather_twin(packed, offsets, cnt, capacity, tile=tile)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert (int(cnt.sum()) > capacity) == saturates
+
+
+@pytest.mark.parametrize("label", gather_cases.HAZARDS)
+def test_gather_twin_matches_pallas_on_hazards(ref, label):
+    """The gather's hazards, twin against ``compact_gather_pallas`` bit for
+    bit (int32 views: NaN fills compare, and ±0 differ)."""
+    packed, off, cnt, capacity, fill = gather_cases.hazard(
+        label, 12 * 256 - 71, tile=256, fill_tails=True)
+    want = ref.fc.compact_gather_pallas(
+        ref.jnp.asarray(packed.numpy()), ref.jnp.asarray(off.numpy()),
+        capacity, tile=256, fill=fill)
+    got = tfc.compact_gather_twin(packed, off, cnt, capacity, tile=256,
+                                  fill=fill)
+    assert got.shape == (packed.shape[0], capacity)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  np.asarray(want).view(np.int32))
 
 
 @pytest.mark.parametrize("n_rows,n_preds,mode", [
@@ -388,4 +405,24 @@ def test_chain_kernel_hazards_match_twin_on_card(label):
             for name, g, w in zip(OUT_NAMES, got, want):
                 assert g.dtype == w.dtype and g.shape == w.shape, name
                 assert torch.equal(g, w), (name, dec is None, compact)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label",
+                         gather_cases.HAZARDS + gather_cases.HAZARDS_WIDE)
+def test_gather_kernel_hazards_match_twin_on_card(label):
+    """The gather's hazards, kernel against twin bit for bit (int32 views).
+    The kernel's output lands in a freed block that held SENTINEL_BITS in
+    every slot, so a slot it never writes shows as that payload."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    packed, off, cnt, capacity, fill = gather_cases.hazard(
+        label, 37 * 2048 - 5, device="cuda")
+    got, in_sentinel = gather_cases.gather_in_sentinel(packed, off, cnt,
+                                                       capacity, fill)
+    assert in_sentinel, "the kernel did not get the sentinel block"
+    want = tfc.compact_gather_twin(packed, off, cnt, capacity, fill=fill)
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     torch.cuda.synchronize()

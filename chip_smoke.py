@@ -54,6 +54,21 @@ four phases; any failure exits non-zero:
    ``save_state`` arrays must agree across all of them; (a)'s tile
    counters must be nonzero and equal across engines; the counters must
    show the stats kernel and the skip chain kernel on every skip step.
+   Then (phase 3c) the ingestion path as a trainer runs it:
+   ``make_pipeline`` over a ``cuda`` session of the paper chain with
+   ``compact=True, capacity="auto"`` and ``TokenizeSpec(152_064, 8)``,
+   8 batches of 2^22 rows into LM batches of 8 x 4096 tokens. Its batches
+   must equal, bit for bit, those of the same pipeline with ``tokenize=None``
+   (host tokenize of the survivors); ``tokens_from_padded`` must give the
+   same whole tensor and count on the card as on the CPU on the edge block
+   (``repro_torch.data.tokenize_cases``); the pipeline state after 3 steps,
+   written and read back through the port's checkpoints into a fresh
+   pipeline, must give the same next batches; syncs per steady
+   ``session.step`` must equal the plan's without tokenize; the counters
+   must show the chain and gather kernels on every step. Its numbers: the
+   tokenize stage's device time and kernels per step under the profiler
+   and its share of the step, and the pipelines' host-clock rows/s and
+   tokens/s.
 4. Numbers, all taken on this card: each kernel's device time at the
    stream's shapes beside its bound, its twin's time and a one-call
    PyTorch yardstick (the chain rows with two bounds: the rows this batch
@@ -89,6 +104,9 @@ RAGGED_ROWS = BATCH_ROWS + 777
 HAZARD_ROWS = 2048 * 700 + 13  # not a multiple of 8, 32 or 2048
 N_SKIP_BATCHES = 8             # the clustered skip-tier stream (33.6M rows)
 PAIRS = 6                      # alternating off/on pairs of the tier's rate
+N_INGEST_BATCHES = 8           # the ingestion pipeline's stream (33.6M rows)
+INGEST_VOCAB = 152_064         # qwen2.5-14b's vocab, as the trainer passes it
+INGEST_LM = dict(batch_size=8, seq_len=4096)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 SOURCE = "src/repro_torch/kernels/filter_chain/csrc/filter_chain.cu"
@@ -132,6 +150,7 @@ def main() -> int:
     runs = phase_stream(torch, dev)
     runs["skip"] = phase_skip_stream(torch, dev,
                                      runs["batches"][:N_SKIP_BATCHES])
+    phase_ingest(torch, dev, runs, smi)
     kernels = phase_numbers(torch, dev, runs, errs)
     check(not sass_failures, "phase 1: " + "; ".join(sass_failures))
     log(json.dumps({"kernels": kernels}))
@@ -913,6 +932,220 @@ def _same_run(torch, got, want, what: str) -> None:
               f"{what}: save_state array {k}")
 
 
+def _ingest_pipeline(plan, wl):
+    from repro_torch.core import build_session
+    from repro_torch.data import make_pipeline
+
+    return make_pipeline(build_session(plan),
+                         total_rows=N_INGEST_BATCHES * BATCH_ROWS,
+                         batch_rows=BATCH_ROWS, seed=0, drift=wl.drift,
+                         vocab_size=INGEST_VOCAB, **INGEST_LM)
+
+
+def _checkpoint_roundtrip(st, directory):
+    """A ``PipelineState`` through the port's checkpoints."""
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.data.pipeline import (state_from_checkpoint,
+                                           state_to_checkpoint)
+
+    tree, extra = state_to_checkpoint(st)
+    save_checkpoint(directory, 3, tree, extra=extra)
+    tree, extra, _ = load_checkpoint(directory, tree)
+    return state_from_checkpoint(tree, extra)
+
+
+class _TimedStream:
+    """A ``LogStream`` in a pipeline, adding up on the host clock the time
+    spent making its batches (``gen_s``)."""
+
+    def __init__(self, stream):
+        self.stream, self.gen_s = stream, 0.0
+
+    @property
+    def cursor(self) -> int:
+        return self.stream.cursor
+
+    def __iter__(self):
+        it = iter(self.stream)
+        while True:
+            t0 = time.perf_counter()
+            rb = next(it, None)
+            self.gen_s += time.perf_counter() - t0
+            if rb is None:
+                return
+            yield rb
+
+
+def _same_lm_batch(got, want, what: str) -> None:
+    import numpy as np
+
+    for k in ("tokens", "labels"):
+        check(got[k].dtype == np.int32 and got[k].shape == want[k].shape
+              and np.array_equal(got[k], want[k]), f"{what}: {k} differ")
+
+
+def _profiled(torch, fn, n: int) -> list:
+    """The device kernels (``key_averages`` rows) of ``n`` calls of ``fn``
+    under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+def phase_ingest(torch, dev, runs, smi: str) -> None:
+    """Phase 3c: the single-pass ingestion path (see the module doc)."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs.paper_filters import PaperWorkload, filter_chain
+    from repro_torch.core import FilterPlan, TokenizeSpec, build_session
+    from repro_torch.data import tokenize_cases, tokenizer
+    from repro_torch.kernels.filter_chain import filter_chain as fc
+
+    n = N_INGEST_BATCHES
+    log(f"== phase 3c: the ingestion path ({n} x {BATCH_ROWS} rows, paper "
+        f"CNF chain, cuda, capacity=auto, TokenizeSpec({INGEST_VOCAB}, 8), "
+        f"LM batches {INGEST_LM})")
+    wl = PaperWorkload()
+    spec = TokenizeSpec(INGEST_VOCAB, 8)
+
+    def plan(tokenize):
+        return FilterPlan(filter_chain("cnf"), wl.ordering, engine="cuda",
+                          compact=True, capacity="auto", tokenize=tokenize)
+
+    # the card's tokenize against the CPU's on the edge block
+    cases = tokenize_cases.cases()
+    for label, packed, counts, vocab, t in cases:
+        packed, counts = torch.from_numpy(packed), torch.from_numpy(
+            np.asarray(counts))
+        want, want_n = tokenizer.tokens_from_padded(packed, counts, vocab, t)
+        got, got_n = tokenizer.tokens_from_padded(packed.to(dev),
+                                                  counts.to(dev), vocab, t)
+        check(got.device.type == "cuda" and torch.equal(got.cpu(), want)
+              and int(got_n) == int(want_n),
+              f"tokens_from_padded on the card != on the CPU: {label}")
+    log(f"  tokens_from_padded: card == CPU bit for bit on {len(cases)} edge "
+        "cases (whole tensor and n_valid)")
+
+    # (A) device tokenize: every LM batch kept; the state after 3 steps
+    fc.reset_launch_counts()
+    pipe = _ingest_pipeline(plan(spec), wl)
+    pipe.stream = _TimedStream(pipe.stream)
+    check(pipe._device_tokenize, "the tokenize plan's pipeline tokenizes "
+          "on the host")
+    lm, st, at, st_s = [], None, None, 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in pipe:
+        lm.append(b)
+        if st is None and pipe.stream.cursor == 3:
+            t1 = time.perf_counter()
+            st, at = pipe.state(), len(lm)
+            st_s = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0 - st_s
+    launches = (fc.filter_chain_kernel.launches,
+                fc.compact_gather_kernel.launches)
+    check(launches == (n, n), f"ingestion launches (chain, gather) "
+          f"{launches} != {(n, n)}")
+    n_tok = pipe.batches_emitted * INGEST_LM["batch_size"] \
+        * (INGEST_LM["seq_len"] + 1)
+    check(len(lm) > 0 and pipe.rows_in == n * BATCH_ROWS,
+          f"the pipeline emitted {len(lm)} batches over {pipe.rows_in} rows")
+
+    # (B) host tokenize of the survivors: the same batches
+    host = _ingest_pipeline(plan(None), wl)
+    host.stream = _TimedStream(host.stream)
+    check(not host._device_tokenize, "tokenize=None pipeline tokenizes on "
+          "the device")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    i = 0
+    for i, b in enumerate(host):
+        check(i < len(lm), "the host-tokenize pipeline emitted more batches")
+        _same_lm_batch(b, lm[i], f"device vs host tokenize, LM batch {i}")
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    check(i + 1 == len(lm) and host.rows_pass == pipe.rows_pass,
+          f"host tokenize emitted {i + 1} batches, device {len(lm)}")
+    log(f"  device tokenize == host tokenize on all {len(lm)} LM batches "
+        f"({pipe.rows_pass} of {pipe.rows_in} rows kept); launches (chain, "
+        f"gather) = {launches}")
+
+    # restart: the state after 3 steps through a checkpoint
+    with tempfile.TemporaryDirectory() as d:
+        st = _checkpoint_roundtrip(st, d)
+    fresh = _ingest_pipeline(plan(spec), wl)
+    fresh.restore(st)
+    # the restored buffer's batches, then two made of step 4's tokens
+    per_batch = INGEST_LM["batch_size"] * (INGEST_LM["seq_len"] + 1)
+    n_next = st.buffer.size // per_batch + 2
+    got = [b for _, b in zip(range(n_next), fresh)]
+    check(len(got) == n_next and at + n_next <= len(lm),
+          f"the restart emitted {len(got)} of {n_next} batches")
+    for j, b in enumerate(got):
+        _same_lm_batch(b, lm[at + j], f"restart, LM batch {at + j}")
+    check(fresh.stream.cursor == 4, "the restart did not run step 4")
+    log(f"  restart after 3 steps through save_checkpoint/load_checkpoint: "
+        f"the next {n_next} LM batches bit-identical, into step 4")
+
+    # syncs per steady session.step: those of the plan without tokenize
+    session = build_session(plan(spec))
+    state, _, syncs, _ = _drive(torch, session, runs["batches"][:n],
+                                record=False, count_syncs=True)
+    want = runs["auto"]["cuda"]["syncs"][:n - 1]
+    check(syncs == want, f"tokenize plan syncs per steady step {syncs} != "
+          f"{want} without tokenize")
+    log(f"  syncs per steady step {syncs}, as without tokenize")
+
+    # numbers: the tokenize stage within a steady step
+    cols = runs["batches"][n - 1]
+    state, res = session.step(state, cols)
+    packed, n_kept = res.packed, res.n_kept
+    ms = _device_ms(torch, lambda: tokenizer.tokens_from_padded(
+        packed, n_kept, INGEST_VOCAB, 8), [()], 10)
+    tok = _profiled(torch, lambda: tokenizer.tokens_from_padded(
+        packed, n_kept, INGEST_VOCAB, 8), 4)
+    holder = [state]
+
+    def step():
+        holder[0], _ = session.step(holder[0], cols)
+
+    stp = _profiled(torch, step, 4)
+    tok_us = sum(e.self_device_time_total for e in tok) / 4
+    tok_k = sum(e.count for e in tok) / 4
+    step_us = sum(e.self_device_time_total for e in stp) / 4
+    step_k = sum(e.count for e in stp) / 4
+    share = f"{tok_us / step_us:.1%}" if step_us > 0 else "not measured"
+    log(f"  tokenize stage ({smi}): {tok_us:.1f} us of device time and "
+        f"{tok_k:.0f} kernels per step under the profiler, {ms:.4f} ms per "
+        f"call by CUDA events, at capacity {res.capacity} with "
+        f"{int(n_kept)} rows kept; the whole step {step_us:.1f} us and "
+        f"{step_k:.0f} kernels; tokenize's share of the step's device time: "
+        f"{share}")
+    log(f"  pipeline ({smi}), host clock over {n} steps: device tokenize "
+        f"{n * BATCH_ROWS / dev_s:,.0f} rows/s, {n_tok / dev_s:,.0f} "
+        f"tokens/s ({dev_s:.2f} s); host tokenize "
+        f"{n * BATCH_ROWS / host_s:,.0f} rows/s, {n_tok / host_s:,.0f} "
+        f"tokens/s ({host_s:.2f} s); stream generation on the host included")
+    dev_g, host_g = pipe.stream.gen_s, host.stream.gen_s
+    log(f"  stream generation ({smi}), host clock inside those loops: "
+        f"device tokenize {dev_g:.3f} s of {dev_s:.3f} s "
+        f"({dev_g / dev_s:.1%}), {dev_g / n * 1e3:.1f} ms a batch, the rest "
+        f"{(dev_s - dev_g) / n * 1e3:.1f} ms a step; host tokenize "
+        f"{host_g:.3f} s of {host_s:.3f} s ({host_g / host_s:.1%}), the "
+        f"rest {(host_s - host_g) / n * 1e3:.1f} ms a step")
+
+
 # ===================================================================== 4
 def _device_ms(torch, fn, arg_sets, iters: int) -> float:
     """Device time per call: the launches queue up behind a sleep kernel,
@@ -1273,21 +1506,16 @@ def _paired_rates(torch, off_plan, on_plan, batches, pairs: int = PAIRS):
 def _profile_steps(torch, plan, batches, step_s: float, n: int = 4) -> None:
     """Device kernels per steady step, under torch.profiler, beside the
     unprofiled step time: how much of a step the device is busy."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core import build_session
 
     session = build_session(plan)
-    state, _ = session.step(session.init_state(), batches[0])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for cols in batches[1:n + 1]:
-            state, _ = session.step(state, cols)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    holder = [session.step(session.init_state(), batches[0])[0]]
+    steps = iter(batches[1:n + 1])
+
+    def step():
+        holder[0], _ = session.step(holder[0], next(steps))
+
+    kernels = _profiled(torch, step, n)
     busy_us = sum(getattr(e, "self_device_time_total", 0.0) for e in kernels)
     count = sum(e.count for e in kernels)
     if not kernels or busy_us <= 0.0:

@@ -143,21 +143,27 @@ class AdaptiveFilter:
                            sample_phase=state.sample_phase)
 
     def step(self, state: OrderState, columns: torch.Tensor, *,
-             fire: bool | None = None):
+             fire: bool | None = None, skip=None, amb_cap: int = 0):
         """One micro-batch: filter + monitor + (maybe) epoch re-rank.
 
         Returns (new_state, mask bool[R], metrics). ``fire`` is the host's
         epoch-boundary decision (``rows_after``); None reads the device.
+        ``skip`` (from ``triage`` on the same batch) and ``amb_cap`` (from
+        ``skip_amb_cap``) put the step behind the zone-map skip tier;
+        ordering statistics advance as without it, since the monitor lane
+        runs row-level on the full batch.
         """
         perm = self._perm(state)
         res = self._engine.run_chain(columns, self.specs, perm,
-                                     self._monitor_spec(state))
+                                     self._monitor_spec(state), skip=skip,
+                                     amb_cap=amb_cap)
         new_state = self._advance_state(state, res, int(columns.shape[1]),
                                         fire)
         return new_state, res.mask, self._metrics(res, perm, new_state)
 
     def _step_compact(self, state: OrderState, columns: torch.Tensor, *,
-                      capacity: int | None = None, fire: bool | None = None):
+                      capacity: int | None = None, fire: bool | None = None,
+                      skip=None, amb_cap: int = 0):
         """``step`` + single-pass device-side survivor compaction.
 
         Returns (new_state, packed f32[C, cap], n_kept i32[], mask bool[R],
@@ -173,7 +179,7 @@ class AdaptiveFilter:
         perm = self._perm(state)
         res, packed, n_kept = self._engine.run_chain_compact(
             columns, self.specs, perm, self._monitor_spec(state),
-            capacity=capacity)
+            capacity=capacity, skip=skip, amb_cap=amb_cap)
         new_state = self._advance_state(state, res, int(columns.shape[1]),
                                         fire)
         n_pass = res.mask.sum(dtype=torch.int32)
@@ -201,41 +207,6 @@ class AdaptiveFilter:
             return 0
         n_tiles = -(-n_rows // skip_tier_lib.SKIP_TILE)
         return skip_tier_lib.quantize_amb_cap(int(info.n_ambiguous), n_tiles)
-
-    def _step_skip(self, state: OrderState, columns: torch.Tensor,
-                   pass_tiles, fail_tiles, *, amb_cap: int,
-                   fire: bool | None = None):
-        """``step`` behind the zone-map skip tier.
-
-        ``pass_tiles``/``fail_tiles`` come from ``triage`` on the same
-        batch, ``amb_cap`` from ``skip_amb_cap``. Ordering statistics
-        advance as in ``step``: the monitor lane runs row-level on the
-        full batch.
-        """
-        perm = self._perm(state)
-        skip = skip_tier_lib.SkipInfo(pass_tiles, fail_tiles, None)
-        res = self._engine.run_chain_skip(
-            columns, self.specs, perm, self._monitor_spec(state), skip,
-            amb_cap=amb_cap)
-        new_state = self._advance_state(state, res, int(columns.shape[1]),
-                                        fire)
-        return new_state, res.mask, self._metrics(res, perm, new_state)
-
-    def _step_skip_compact(self, state: OrderState, columns: torch.Tensor,
-                           pass_tiles, fail_tiles, *, amb_cap: int,
-                           capacity: int, fire: bool | None = None):
-        """``_step_compact`` behind the zone-map skip tier."""
-        perm = self._perm(state)
-        skip = skip_tier_lib.SkipInfo(pass_tiles, fail_tiles, None)
-        res, packed, n_kept = self._engine.run_chain_compact_skip(
-            columns, self.specs, perm, self._monitor_spec(state), skip,
-            amb_cap=amb_cap, capacity=capacity)
-        new_state = self._advance_state(state, res, int(columns.shape[1]),
-                                        fire)
-        n_pass = res.mask.sum(dtype=torch.int32)
-        metrics = self._metrics(res, perm, new_state,
-                                n_dropped=n_pass - n_kept)
-        return new_state, packed, n_kept, res.mask, metrics
 
     # --------------------------------------------------- capacity auto-tune
     def resolve_capacity(self, n_rows: int) -> int:

@@ -60,13 +60,16 @@ class FilterEngine(Protocol):
     # True → the engine runs on device tensors without host round trips
     traceable: bool
 
-    def run_chain(self, columns, specs, perm,
-                  monitor: MonitorSpec) -> ChainResult:
-        """Evaluate the CNF chain in ``perm`` order + run the monitor lane."""
+    def run_chain(self, columns, specs, perm, monitor: MonitorSpec, *,
+                  skip: SkipInfo | None = None,
+                  amb_cap: int = 0) -> ChainResult:
+        """Evaluate the CNF chain in ``perm`` order + run the monitor lane
+        (behind the skip tier when ``skip`` is given; see below)."""
         ...
 
     def run_chain_compact(self, columns, specs, perm, monitor: MonitorSpec,
-                          *, capacity: int, fill: float = 0.0):
+                          *, capacity: int, fill: float = 0.0,
+                          skip: SkipInfo | None = None, amb_cap: int = 0):
         """``run_chain`` + fixed-capacity survivor compaction.
 
         Returns (ChainResult, packed f32[C, capacity], n_kept i32[]).
@@ -74,18 +77,15 @@ class FilterEngine(Protocol):
         ...
 
     # --- optional skip-tier surface (core/skip_tier.py) -----------------
-    # Engines with ``supports_skip = True`` additionally implement:
+    # Engines with ``supports_skip = True`` additionally implement
     #
     #   triage(columns, specs, *, bloom: bool) -> SkipInfo
     #       Zone-map (+ optional Bloom) summaries resolved against the
-    #       chain, from the specs' host tuples (no device read).
+    #       chain, from the specs' host tuples (no device read),
     #
-    #   run_chain_skip(columns, specs, perm, monitor, skip, *, amb_cap)
-    #   run_chain_compact_skip(..., amb_cap, capacity, fill)
-    #       ``run_chain``/``run_chain_compact`` with provably-decided tiles
-    #       bypassing the row-level chain. ``amb_cap`` is the gathered
-    #       width in tiles for engines that gather (``skip_gathers =
-    #       True``: torch); the cuda engine predicates in-kernel and
-    #       ignores it. The monitor lane always runs row-level on the full
-    #       batch, so ordering statistics are identical with the tier on
-    #       or off.
+    # and accept its result as ``skip`` in ``run_chain`` /
+    # ``run_chain_compact``. ``amb_cap`` is the gathered width in tiles
+    # for engines that gather (``skip_gathers = True``: torch); the cuda
+    # engine predicates in-kernel and ignores it. The monitor lane always
+    # runs row-level on the full batch, so ordering statistics are
+    # identical with the tier on or off.

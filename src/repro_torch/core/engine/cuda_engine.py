@@ -21,26 +21,34 @@ class CudaEngine:
     # the session never reads an ambiguous count for this engine
     skip_gathers = False
 
-    def run_chain(self, columns, specs, perm,
-                  monitor: MonitorSpec) -> ChainResult:
+    def run_chain(self, columns, specs, perm, monitor: MonitorSpec, *,
+                  skip: SkipInfo | None = None,
+                  amb_cap: int = 0) -> ChainResult:
+        """With ``skip``, the chain kernel's decisions variant: decided
+        rows start non-pending (a fully decided tile evaluates no
+        predicate); ``amb_cap`` is ignored — nothing is gathered."""
         from repro_torch.kernels.filter_chain import ops as kernel_ops
-        return kernel_ops.filter_chain(
-            columns, specs, perm,
-            collect_rate=monitor.collect_rate,
-            sample_phase=monitor.sample_phase,
-            monitor_mode=monitor.mode)
+        kw = dict(collect_rate=monitor.collect_rate,
+                  sample_phase=monitor.sample_phase,
+                  monitor_mode=monitor.mode)
+        if skip is not None:
+            return kernel_ops.filter_chain_skip(columns, specs, perm, skip,
+                                                **kw)
+        return kernel_ops.filter_chain(columns, specs, perm, **kw)
 
     def run_chain_compact(self, columns, specs, perm, monitor: MonitorSpec,
-                          *, capacity: int, fill: float = 0.0):
+                          *, capacity: int, fill: float = 0.0,
+                          skip: SkipInfo | None = None, amb_cap: int = 0):
         """Survivors are packed per tile by the chain kernel; the gather
         kernel stores each tile's pack at its exclusive offset."""
         from repro_torch.kernels.filter_chain import ops as kernel_ops
-        return kernel_ops.filter_chain_compact(
-            columns, specs, perm,
-            collect_rate=monitor.collect_rate,
-            sample_phase=monitor.sample_phase,
-            capacity=capacity, fill=fill,
-            monitor_mode=monitor.mode)
+        kw = dict(collect_rate=monitor.collect_rate,
+                  sample_phase=monitor.sample_phase,
+                  capacity=capacity, fill=fill, monitor_mode=monitor.mode)
+        if skip is not None:
+            return kernel_ops.filter_chain_compact_skip(columns, specs, perm,
+                                                        skip, **kw)
+        return kernel_ops.filter_chain_compact(columns, specs, perm, **kw)
 
     # ------------------------------------------------------- skip tier
     def triage(self, columns, specs, *, bloom: bool) -> SkipInfo:
@@ -48,27 +56,3 @@ class CudaEngine:
         resolution."""
         from repro_torch.kernels.filter_chain import ops as kernel_ops
         return kernel_ops.skip_triage(columns, specs, bloom=bloom)
-
-    def run_chain_skip(self, columns, specs, perm, monitor: MonitorSpec,
-                       skip: SkipInfo, *, amb_cap: int = 0) -> ChainResult:
-        """The chain kernel with per-sub-tile decisions: decided rows start
-        non-pending (a fully decided tile evaluates no predicate);
-        ``amb_cap`` is ignored — nothing is gathered."""
-        from repro_torch.kernels.filter_chain import ops as kernel_ops
-        return kernel_ops.filter_chain_skip(
-            columns, specs, perm, skip,
-            collect_rate=monitor.collect_rate,
-            sample_phase=monitor.sample_phase,
-            monitor_mode=monitor.mode)
-
-    def run_chain_compact_skip(self, columns, specs, perm,
-                               monitor: MonitorSpec, skip: SkipInfo, *,
-                               amb_cap: int = 0, capacity: int,
-                               fill: float = 0.0):
-        from repro_torch.kernels.filter_chain import ops as kernel_ops
-        return kernel_ops.filter_chain_compact_skip(
-            columns, specs, perm, skip,
-            collect_rate=monitor.collect_rate,
-            sample_phase=monitor.sample_phase,
-            capacity=capacity, fill=fill,
-            monitor_mode=monitor.mode)

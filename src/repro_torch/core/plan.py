@@ -5,8 +5,7 @@ PyTorch port of ``repro.core.plan``. The fields, the cross-field rules of
 reference's; the engines are the port's (``"torch"``, ``"cuda"``) and the
 default engine is ``"cuda"``. Combinations whose slice of the port has
 not landed raise ``NotImplementedError`` naming the ``ROADMAP.md`` item:
-``shards > 1``, ``tokenize``, the ``numpy`` engine and
-``cost_mode="measured"``.
+``shards > 1``, the ``numpy`` engine and ``cost_mode="measured"``.
 
 ``fingerprint()`` hashes the semantic identity of the adaptive state
 (chain, ordering config, scope, adaptivity, cost mode) byte for byte as
@@ -130,8 +129,6 @@ def _reject_unported(plan: "FilterPlan") -> None:
     todo = []
     if isinstance(plan.shards, int) and plan.shards > 1:
         todo.append("shards > 1 (ROADMAP.md queue 1 item 10, sharding)")
-    if plan.tokenize is not None:
-        todo.append("tokenize (ROADMAP.md queue 1 item 5, device tokenize)")
     if plan.engine == "numpy":
         todo.append("engine='numpy' (ROADMAP.md queue 1 item 12, host "
                     "reference paths)")

@@ -7,15 +7,17 @@ device=None)`` places the session on ``cuda`` unless the caller passes
     state, result = session.step(state, batch)
 
 ``StepResult`` is the uniform step ABI (mask, packed + n_kept under
-compaction, metrics) with host accessors that copy on demand. A step
-reads nothing from the device: the epoch boundary comes from a host
-mirror of ``rows_into_epoch`` (it advances by the static batch width), so
-the only device→host copies of a step are the ``capacity="auto"`` retune
-after a boundary, the one re-anchoring read when a state arrives that
-this session did not produce, and the skip tier's: the ambiguous-tile
-count that sizes the ``torch`` engine's gather (none on ``cuda``), and
-the ``skip_tier="auto"`` tuner's wall clock (a ``synchronize`` plus one
-read of the tile counters on the tier's arm).
+compaction, tokens + n_tokens under a ``TokenizeSpec``, metrics) with
+host accessors that copy on demand. A step reads nothing from the device:
+the epoch boundary comes from a host mirror of ``rows_into_epoch`` (it
+advances by the static batch width), and the tokenize stage reads no
+count, so the only device→host copies of a step are the
+``capacity="auto"`` retune after a boundary, the one re-anchoring read
+when a state arrives that this session did not produce, and the skip
+tier's: the ambiguous-tile count that sizes the ``torch`` engine's
+gather (none on ``cuda``), and the ``skip_tier="auto"`` tuner's wall
+clock (a ``synchronize`` plus one read of the tile counters on the
+tier's arm).
 
 Checkpoints are the reference's schema v2 envelope (plan fingerprint,
 shard layout, crc32 over the state arrays) and load v1 raw-array blobs;
@@ -24,6 +26,7 @@ blobs move between ``repro`` and ``repro_torch`` in both directions.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 import warnings
@@ -36,7 +39,7 @@ import torch
 from repro_torch.core import skip_tier as skip_tier_lib
 from repro_torch.core.adaptive_filter import AdaptiveFilter, StepMetrics
 from repro_torch.core.ordering import OrderState
-from repro_torch.core.plan import FilterPlan
+from repro_torch.core.plan import FilterPlan, TokenizeSpec
 from repro_torch.core.stats import FilterStats
 
 log = logging.getLogger(__name__)
@@ -119,18 +122,28 @@ class StepResult(NamedTuple):
         return int(_np(self.metrics.n_tiles_ambiguous).sum())
 
     def survivors(self, columns=None) -> np.ndarray:
-        """Surviving rows as a host f32[C, n_pass] array."""
+        """Surviving rows as a host f32[C, n_pass] array.
+
+        Under compaction (incl. tokenize plans) this reads ``n_kept`` once
+        and copies only ``packed[:, :n_kept]``; otherwise it boolean-
+        indexes ``columns`` (required then). Tokenize-plan pipelines
+        prefer ``host_tokens``: only the dense token stream crosses to the
+        host there."""
         self._maybe_warn_overflow()
         if self.packed is not None:
-            return _np(self.packed)[:, :int(_np(self.n_kept))]
+            return _np(self.packed[:, :int(_np(self.n_kept))])
         if columns is None:
             raise ValueError("no compaction in this session: pass the "
                              "original columns to slice by mask")
         return _np(columns)[:, self.mask_np]
 
     def host_tokens(self) -> np.ndarray:
-        raise ValueError("session has no tokenize stage "
-                         "(FilterPlan.tokenize is None)")
+        """Dense packed token stream (device tokenize sessions only):
+        reads ``n_tokens`` once and copies only ``tokens[:n_tokens]``."""
+        if self.tokens is None:
+            raise ValueError("session has no tokenize stage "
+                            "(FilterPlan.tokenize is None)")
+        return _np(self.tokens[:int(_np(self.n_tokens))])
 
     def metrics_dict(self) -> dict:
         """The JSON metrics encoding (same keys as ``repro``'s)."""
@@ -228,10 +241,12 @@ def fstate_from_arrays(fs: dict, device="cpu") -> OrderState:
 class FilterSession:
     """A compiled ``FilterPlan`` on one device; see the module docstring."""
 
-    def __init__(self, plan: FilterPlan, device):
+    def __init__(self, plan: FilterPlan, device, *,
+                 _filter: AdaptiveFilter | None = None):
         self.plan = plan
         self.device = torch.device(device)
-        self.filter = AdaptiveFilter(plan, self.device)
+        self.filter = (_filter if _filter is not None
+                       else AdaptiveFilter(plan, self.device))
         # host mirror of rows_into_epoch and the tensor it mirrors; whether
         # that state came from outside (a restore or a foreign state)
         self._rows_host = 0
@@ -250,6 +265,17 @@ class FilterSession:
         state = self.filter.init_state()
         self._anchor(state, 0)
         return state
+
+    def with_tokenize(self, tokenize: TokenizeSpec) -> "FilterSession":
+        """The same filter, device and state mirror, plus the device
+        tokenize stage (the plan is re-validated: tokenize needs
+        compaction); the new session gets its own skip-tier tuner."""
+        session = FilterSession(
+            dataclasses.replace(self.plan, tokenize=tokenize), self.device,
+            _filter=self.filter)
+        session._rows_host, session._rows_ref, session._foreign = (
+            self._rows_host, self._rows_ref, self._foreign)
+        return session
 
     # ----------------------------------------------------------- skip tier
     def _skip_step_mode(self) -> str:
@@ -299,30 +325,29 @@ class FilterSession:
         retune = self._foreign
         fire, rows = f.rows_after(self._rows_host, n_rows)
         prev = state
-        packed = n_kept = cap = None
+        packed = n_kept = tokens = n_tokens = cap = None
         skip_mode = self._skip_step_mode()
         t0 = time.perf_counter()
-        info = None
+        skip, amb_cap = None, 0
         if skip_mode != "off":
             # the torch engine reads the ambiguous count here to size its
             # gather; the cuda engine predicates in-kernel and reads nothing
-            info = f.triage(cols, bloom=skip_mode == "zonemap+bloom")
-            amb_cap = f.skip_amb_cap(info, n_rows)
+            skip = f.triage(cols, bloom=skip_mode == "zonemap+bloom")
+            amb_cap = f.skip_amb_cap(skip, n_rows)
         if self.plan.compact:
             cap = f.resolve_capacity(n_rows)
-            if info is not None:
-                state, packed, n_kept, mask, metrics = f._step_skip_compact(
-                    state, cols, info.pass_tiles, info.fail_tiles,
-                    amb_cap=amb_cap, capacity=cap, fire=fire)
-            else:
-                state, packed, n_kept, mask, metrics = f._step_compact(
-                    state, cols, capacity=cap, fire=fire)
-        elif info is not None:
-            state, mask, metrics = f._step_skip(
-                state, cols, info.pass_tiles, info.fail_tiles,
-                amb_cap=amb_cap, fire=fire)
+            state, packed, n_kept, mask, metrics = f._step_compact(
+                state, cols, capacity=cap, fire=fire, skip=skip,
+                amb_cap=amb_cap)
+            if self.plan.tokenize is not None:
+                # imported here: repro_torch.data imports this module
+                from repro_torch.data import tokenizer
+                ts = self.plan.tokenize
+                tokens, n_tokens = tokenizer.tokens_from_padded(
+                    packed, n_kept, ts.vocab_size, ts.tokens_per_row)
         else:
-            state, mask, metrics = f.step(state, cols, fire=fire)
+            state, mask, metrics = f.step(state, cols, fire=fire, skip=skip,
+                                          amb_cap=amb_cap)
         if self.plan.skip_tier == "auto":
             self._observe_skip_arm(skip_mode, metrics, t0, n_rows)
         if f.exchange_deferred \
@@ -334,8 +359,8 @@ class FilterSession:
             f.observe_for_capacity(prev, state, n_rows)
         self._anchor(state, rows)
         metrics = metrics._replace(epoch=state.epoch)
-        return state, StepResult(mask, packed, n_kept, None, None, metrics,
-                                 cap, warn_cell=[],
+        return state, StepResult(mask, packed, n_kept, tokens, n_tokens,
+                                 metrics, cap, warn_cell=[],
                                  gate_s=time.perf_counter() - t_gate)
 
     def _observe_skip_arm(self, skip_mode: str, metrics: StepMetrics,

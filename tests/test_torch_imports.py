@@ -1,13 +1,16 @@
 """The port stands alone and runs on the card unless told otherwise.
 
 * No file of ``src/repro_torch`` — nor ``chip_smoke.py`` — imports ``jax``
-  or ``repro`` (an AST scan of every import statement).
+  or ``repro`` (an AST scan of every import statement), and importing the
+  port's modules, the ingestion path's included, loads neither.
 * ``build_session`` without a device targets ``cuda``; with no card it
   raises instead of running on the CPU.
 * The ``gpu`` marker is registered in ``pyproject.toml``.
 """
 
 import ast
+import subprocess
+import sys
 import tomllib
 from pathlib import Path
 
@@ -47,8 +50,9 @@ def is_forbidden(mod: str) -> bool:
 
 def test_port_files_exist():
     names = {p.name for p in PORT_FILES}
-    assert {"chip_smoke.py", "session.py", "filter_chain.py",
-            "ops.py"} <= names
+    assert {"chip_smoke.py", "session.py", "filter_chain.py", "ops.py",
+            "tokenizer.py", "tokenize_cases.py", "pipeline.py",
+            "ckpt.py"} <= names
     assert (ROOT / "chip_smoke.py").is_file()
 
 
@@ -57,6 +61,31 @@ def test_port_files_exist():
 def test_no_jax_or_repro_imports(path):
     bad = sorted(m for m in imported_modules(path) if is_forbidden(m))
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+PORT_MODULES = ["repro_torch", "repro_torch.core", "repro_torch.data",
+                "repro_torch.data.tokenizer", "repro_torch.data.pipeline",
+                "repro_torch.checkpoint", "repro_torch.configs.paper_filters",
+                "repro_torch.kernels.filter_chain.ops"]
+
+
+def test_importing_the_port_loads_no_jax_or_repro():
+    """In a fresh interpreter, each module is imported first, with the
+    port unloaded before it (an import cycle between ``core`` and ``data``
+    shows this way); neither package is ever loaded."""
+    code = ("import importlib, sys\n"
+            "for mod in sys.argv[1:]:\n"
+            "    for m in [m for m in sys.modules\n"
+            "              if m.split('.')[0] == 'repro_torch']:\n"
+            "        del sys.modules[m]\n"
+            "    importlib.import_module(mod)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    done = subprocess.run(
+        [sys.executable, "-c", code, *PORT_MODULES], capture_output=True,
+        text=True, timeout=120, env={"PYTHONPATH": str(ROOT / "src")})
+    assert done.returncode == 0, done.stderr[-2000:]
 
 
 def test_scan_catches_forbidden_imports(tmp_path):

@@ -6,7 +6,8 @@ kernels' exact per-tile contract; here they are held bit for bit against
 interpret mode on the same numpy inputs, and the port's ``ops`` glue
 against ``repro``'s. The CUDA kernels themselves run only on a card: the
 ``gpu``-marked tests hold them (the stats kernel and the chain kernel's
-skip variant too) against their twins there, where JAX is not installed — so ``repro`` is imported by the fixture of the tests that
+skip variant too) against their twins there, and the device tokenizer on
+the card against the CPU's, where JAX is not installed — so ``repro`` is imported by the fixture of the tests that
 compare with it, never at module level.
 """
 
@@ -18,6 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import predicates as TP  # noqa: E402
+from repro_torch.data import tokenize_cases, tokenizer  # noqa: E402
 from repro_torch.kernels.filter_chain import filter_chain as tfc  # noqa: E402
 from repro_torch.kernels.filter_chain import gather_cases  # noqa: E402
 from repro_torch.kernels.filter_chain import ops as t_ops  # noqa: E402
@@ -426,3 +428,22 @@ def test_gather_kernel_hazards_match_twin_on_card(label):
     assert got.shape == want.shape
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", tokenize_cases.cases(), ids=lambda c: c[0])
+def test_device_tokenize_on_card_matches_cpu(case):
+    """``tokens_from_padded`` on the card equals the CPU's bit for bit on
+    the edge block (NaN payloads, ±inf, ±0, subnormals; counts 0, partial
+    and full; one and three pipelines; vocab 2 to 2^24 - 1): the whole
+    token tensor, zero tail included, and ``n_valid``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card's tokenize runs there")
+    _, packed, counts, vocab, t = case
+    packed, counts = torch.from_numpy(packed), torch.from_numpy(
+        np.asarray(counts))
+    want, want_n = tokenizer.tokens_from_padded(packed, counts, vocab, t)
+    got, got_n = tokenizer.tokens_from_padded(packed.cuda(), counts.cuda(),
+                                              vocab, t)
+    assert got.device.type == "cuda" and got_n.device.type == "cuda"
+    assert torch.equal(got.cpu(), want) and int(got_n) == int(want_n)

@@ -190,7 +190,6 @@ def test_validate_combo_raises_the_same_errors(kw):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(shards=2), "item 10"),
-    (dict(tokenize=T.TokenizeSpec(1000)), "item 5"),
     (dict(engine="numpy"), "item 12"),
     (dict(cost_mode="measured"), "item 12"),
 ])

@@ -441,17 +441,17 @@ def test_engines_match_repro_engines(ref, pair, n_rows, bloom):
     cap = r_skip.quantize_amb_cap(int(w_info.n_ambiguous), n_tiles)
     assert t_skip.quantize_amb_cap(int(g_info.n_ambiguous),
                                    n_tiles) == cap
-    got = t_eng.run_chain_skip(cols_t, t_specs, torch.from_numpy(perm),
-                               t_mon, g_info, amb_cap=cap)
+    got = t_eng.run_chain(cols_t, t_specs, torch.from_numpy(perm), t_mon,
+                          skip=g_info, amb_cap=cap)
     # jitted with the specs closed over, as repro's session runs it
     w_c, w_packed, w_kept = ref.jax.jit(
         lambda c, p, pt, ft: r_eng.run_chain_compact_skip(
             c, r_specs, p, r_mon, RSkip(pt, ft, None), amb_cap=cap,
             capacity=200))(jnp.asarray(cols), jnp.asarray(perm),
                            w_info.pass_tiles, w_info.fail_tiles)
-    g_c, g_packed, g_kept = t_eng.run_chain_compact_skip(
-        cols_t, t_specs, torch.from_numpy(perm), t_mon, g_info,
-        amb_cap=cap, capacity=200)
+    g_c, g_packed, g_kept = t_eng.run_chain_compact(
+        cols_t, t_specs, torch.from_numpy(perm), t_mon, capacity=200,
+        skip=g_info, amb_cap=cap)
     # repro's compacting skip path returns its plain skip path's result
     for w_r, g_r in ((w_c, got), (w_c, g_c)):
         for field in ("mask", "cut_counts", "n_monitored",

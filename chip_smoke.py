@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Runs from the root of a checkout, on a machine with one NVIDIA H100, in
-four phases; any failure exits non-zero:
+five phases; any failure exits non-zero:
 
 1. Device: the card's name and power limit, torch and CUDA versions; the
    kernels are built from ``src/repro_torch/kernels/filter_chain/csrc``
@@ -82,6 +82,26 @@ four phases; any failure exits non-zero:
    plan, and of the tier on vs off in 6 alternating pairs on ``cuda``;
    device-busy share and kernels per step; device→host syncs per
    steady-state step against the budgets of PERF.md §2.
+5. The guarded serving path (``repro_torch.runtime``, ``repro_torch.
+   serving``, ``repro_torch.launch.serve``): (a) a chaos soak of
+   ``GuardedSession.run_log_stream`` over phase 3's first 12 batches, fed
+   from host memory through a ``RequestStream``, paper CNF chain on
+   ``cuda`` with ``compact=True, capacity=1_048_576``: two batches
+   poisoned, one column storm, one killed step, one state corrupted with
+   an infinite cost (``"nan_stat"`` heals at the epoch boundary that every
+   2^22-row batch crosses) — clean batches bit-identical to the unguarded ``cuda`` run, the storm
+   kept whole, every recovery counted, the only degrade the storm's
+   capacity rung; (b) the ladder on the card: from ``cuda`` /
+   ``zonemap`` / 1,048,576 on phase 3b's clustered batches, a fault of six
+   step attempts walks down to ``torch`` / off / mask compaction (on the
+   card, launching nothing) and ``promote_after=2`` climbs back, the
+   kernels launched again at the top, masks equal to the unguarded run;
+   a fault-free guarded run degrades nothing; then syncs per steady
+   guarded step against their budget, the host finite check's time, and
+   guarded vs unguarded rows/s in alternating pairs; (c) the serve CLI at
+   its defaults (4096 requests, guarded) on the card and on the CPU —
+   queued == synchronous, card == CPU on masks and the final state — and
+   at 65,536 requests, with req/s and p99 admission latency.
 
 The last two lines before the final one are the kernels' JSON record and
 ``nvidia-smi --query-gpu=name,power.limit``'s line; the final line is
@@ -152,6 +172,7 @@ def main() -> int:
                                      runs["batches"][:N_SKIP_BATCHES])
     phase_ingest(torch, dev, runs, smi)
     kernels = phase_numbers(torch, dev, runs, errs)
+    phase_guarded(torch, dev, runs, smi)
     check(not sass_failures, "phase 1: " + "; ".join(sass_failures))
     log(json.dumps({"kernels": kernels}))
     log(smi)
@@ -1528,6 +1549,337 @@ def _profile_steps(torch, plan, batches, step_s: float, n: int = 4) -> None:
         f"the unprofiled step ({step_s * 1e3:.3f} ms); top: " + "; ".join(
             f"{e.key[:40]} {e.self_device_time_total / n:.1f} us"
             for e in top))
+
+
+# ===================================================================== 5
+N_SOAK_BATCHES = 12            # the chaos soak: the paper stream's first 12
+GUARD_CAPACITY = 1_048_576     # bounded compaction: only the storm overflows
+SOAK_FAULTS = dict(poison=(2, 9), storm=(6,), kill=(4,), corrupt=(8,))
+#: the corruption the soak injects: every 2^22-row batch crosses an epoch
+#: boundary, which zeroes num_cut (so "nan_stat" heals within the step,
+#: and the CNF ranks read group_cut); an infinite cost reaches the ranks
+SOAK_CORRUPTION = "inf_stat"
+N_LADDER_STEPS = 12            # the clustered batches, cycled
+SERVE_REQUESTS = (4096, 65_536)
+
+
+def _guard_plan(**kw):
+    from repro_torch.configs.paper_filters import PaperWorkload, filter_chain
+    from repro_torch.core import FilterPlan
+
+    return FilterPlan(filter_chain("cnf"), PaperWorkload().ordering,
+                      engine="cuda", compact=True, capacity=GUARD_CAPACITY,
+                      **kw)
+
+
+def _launch_counts() -> dict:
+    from repro_torch.kernels.filter_chain import filter_chain as fc
+
+    return fc.launch_counts()
+
+
+def _masks(torch, plan, batches) -> list:
+    """The unguarded ``cuda`` session's masks over the batches."""
+    from repro_torch.core import build_session
+
+    session = build_session(plan)
+    state, masks = session.init_state(), []
+    for cols in batches:
+        state, res = session.step(state, cols)
+        masks.append(res.mask)
+    return masks
+
+
+def phase_guarded(torch, dev, runs, smi: str) -> None:
+    """Phase 5: the guarded serving path (see the module docstring)."""
+    log("== phase 5: the guarded serving path (GuardedSession, the fault "
+        "toolkit, the admission server)")
+    t0 = time.perf_counter()
+    host = [b.cpu().numpy() for b in runs["batches"][:N_SOAK_BATCHES]]
+    _guarded_soak(torch, runs["batches"][:N_SOAK_BATCHES], host, smi)
+    _guarded_ladder(torch, runs["skip"]["batches"], smi)
+    _guard_syncs_and_pairs(torch, runs["batches"][:N_SOAK_BATCHES], host,
+                           smi)
+    _serve_runs(torch, smi)
+    log(f"  phase 5 took {time.perf_counter() - t0:.1f} s ({smi})")
+
+
+def _guarded_soak(torch, dev_batches, host, smi: str) -> None:
+    """(a) The chaos soak at full width: host batches through a
+    ``RequestStream`` under ``run_log_stream``, two poisoned, one storm,
+    one killed step and one corrupted state; clean batches bit-identical
+    to the unguarded ``cuda`` run, every recovery counted."""
+    from repro_torch.core import build_session
+    from repro_torch.data.stream import RequestStream
+    from repro_torch.kernels.filter_chain import filter_chain as fc
+    from repro_torch.runtime import (DataFaultInjector, FailureInjector,
+                                     GuardedSession, GuardPolicy,
+                                     corrupt_state)
+
+    n, f = len(host), SOAK_FAULTS
+    plan = _guard_plan()
+    base = _masks(torch, plan, dev_batches)
+    survivor = int(torch.nonzero(base[0])[0])
+    inj = DataFaultInjector(poison_at=f["poison"], storm_at=f["storm"],
+                            storm_row=host[0][:, survivor])
+    kill = FailureInjector(f["kill"])
+
+    def state_inj(i, st):
+        return corrupt_state(st, SOAK_CORRUPTION) if i in f["corrupt"] \
+            else st
+
+    guard = GuardedSession(build_session(plan),
+                           GuardPolicy(validate_every=1, checkpoint_every=4),
+                           step_injector=kill.maybe_fail,
+                           state_injector=state_inj)
+    stream = RequestStream(lambda b, start, rows: host[b],
+                           total_rows=n * BATCH_ROWS, batch_rows=BATCH_ROWS)
+    fc.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, results = guard.run_log_stream(stream, batch_hook=inj)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launch_counts()
+
+    check(sorted(results) == list(range(n)), f"soak results {sorted(results)}")
+    kept = []
+    for b, res in results.items():
+        if b in f["poison"]:
+            check(res.quarantined and not bool(res.mask.any()),
+                  f"soak: poisoned batch {b} not quarantined")
+        elif b in f["storm"]:
+            check(not res.quarantined and res.n_pass == BATCH_ROWS,
+                  f"soak: the storm batch kept {res.n_pass} of {BATCH_ROWS}")
+        else:
+            check(not res.quarantined and torch.equal(res.mask, base[b]),
+                  f"soak: clean batch {b} differs from the unguarded run")
+            kept.append(res.n_pass)
+    h = guard.health
+    check(h.quarantined == len(f["poison"]) and h.overflow_events == 1
+          and h.retries >= 1 and h.validator_failures >= 1
+          and h.rollbacks >= 1, f"soak health {h.summary()}")
+    check([e["changes"] for e in h.degrades] == [{"capacity": "None"}],
+          f"soak degraded other than the storm's capacity rung: "
+          f"{h.degrades}")
+    check(guard.session.plan.engine == "cuda"
+          and guard.session.validate_state(state),
+          "soak: final state invalid or engine left cuda")
+    check(launches["chain"] >= n and launches["gather"] >= n,
+          f"soak launches {launches}")
+    log(f"  (a) chaos soak, {n} host batches x {BATCH_ROWS} rows, capacity "
+        f"{GUARD_CAPACITY}, faults {f}, corruption {SOAK_CORRUPTION!r}: "
+        f"{seconds:.2f} s ({smi}); clean "
+        f"batches == unguarded cuda run, kept {min(kept)}-{max(kept)}; the "
+        f"storm kept all {BATCH_ROWS} rows; guard[{h.summary()}] "
+        f"validator_failures={h.validator_failures}; degrades "
+        f"{[e['changes'] for e in h.degrades]}; launches {launches}")
+
+
+def _guarded_ladder(torch, clustered, smi: str) -> None:
+    """(b) The ladder on the card: a fault that fails six step attempts
+    walks cuda → torch, zonemap → off and fused → mask compaction; once it
+    clears, promote_after=2 climbs back to the kernels. Then a fault-free
+    guarded run: zero degrades."""
+    from repro_torch.core import build_session
+    from repro_torch.kernels.filter_chain import filter_chain as fc
+    from repro_torch.runtime import GuardedSession, GuardPolicy
+
+    plan = _guard_plan(skip_tier="zonemap")
+    seq = [clustered[i % len(clustered)] for i in range(N_LADDER_STEPS)]
+    want = _masks(torch, plan, seq)
+    fault = {"left": 6}
+
+    def injector(i):
+        if i >= 1 and fault["left"] > 0:
+            fault["left"] -= 1
+            raise RuntimeError("injected device fault")
+
+    fc.reset_launch_counts()
+    guard = GuardedSession(
+        build_session(plan),
+        GuardPolicy(max_retries=1, validate_every=1, promote_after=2),
+        step_injector=injector)
+    state, at_top = guard.init_state(), None
+    for i, (cols, mask) in enumerate(zip(seq, want)):
+        before = _launch_counts()
+        state, res = guard.step(state, cols)
+        check(torch.equal(res.mask, mask), f"ladder: mask differs, step {i}")
+        check(guard.session.device.type == "cuda",
+              f"ladder: the session left the card at step {i}")
+        if i == 1:
+            check(guard.session.plan.engine == "torch"
+                  and _launch_counts() == before,
+                  "ladder: the bottom rung launched a kernel")
+        if at_top is None and len(guard.health.promotes) == 3:
+            at_top = (i, _launch_counts())
+    h = guard.health
+    down = [{"engine": "torch"}, {"skip_tier": "off"},
+            {"compact": "False", "capacity": "None"}]
+    up = [{"compact": "True", "capacity": str(GUARD_CAPACITY)},
+          {"skip_tier": "zonemap"}, {"engine": "cuda"}]
+    check([e["changes"] for e in h.degrades] == down
+          and [e["changes"] for e in h.promotes] == up,
+          f"ladder: degrades {h.degrades}, promotes {h.promotes}")
+    rungs = guard.health_snapshot()["rungs"]
+    check(rungs == {"engine": "cuda", "skip_tier": "zonemap",
+                    "compact": True, "capacity": str(GUARD_CAPACITY),
+                    "degrade_depth": 0}, f"ladder: final rungs {rungs}")
+    end = _launch_counts()
+    check(at_top is not None and all(end[k] > at_top[1][k] for k in end),
+          f"ladder: kernels not launched after the last promotion "
+          f"({at_top} -> {end})")
+    log(f"  (b) ladder, {N_LADDER_STEPS} clustered steps from "
+        f"cuda/zonemap/{GUARD_CAPACITY}: degrades at steps "
+        f"{[e['step'] for e in h.degrades]} {[e['changes'] for e in h.degrades]}"
+        f", promotes at steps {[e['step'] for e in h.promotes]}; masks == "
+        f"unguarded; launches at the last promotion (after step "
+        f"{at_top[0]}) {at_top[1]}, at the end {end}")
+
+    fc.reset_launch_counts()
+    clean = GuardedSession(build_session(plan),
+                           GuardPolicy(validate_every=1, promote_after=2))
+    state = clean.init_state()
+    for i, (cols, mask) in enumerate(zip(seq, want)):
+        state, res = clean.step(state, cols)
+        check(torch.equal(res.mask, mask), f"fault-free guarded: mask, "
+              f"step {i}")
+    launches = _launch_counts()
+    h = clean.health
+    check(h.degrades == [] and h.promotes == [] and h.retries == 0
+          and h.overflow_events == 0,
+          f"a fault-free guarded run degraded: {h.summary()} {h.degrades}")
+    check(all(v == N_LADDER_STEPS for v in launches.values()),
+          f"fault-free guarded launches {launches}")
+    log(f"  (b) fault-free guarded run: guard[{h.summary()}], launches "
+        f"{launches}")
+
+
+def _guard_syncs_and_pairs(torch, dev_batches, host, smi: str) -> None:
+    """Syncs per steady guarded step against the unguarded step's, on
+    device-resident and host batches; the host finite check's own time;
+    guarded vs unguarded rows/s in alternating pairs."""
+    import numpy as np
+
+    from repro_torch.core import build_session
+    from repro_torch.core.session import fstate_to_arrays
+    from repro_torch.runtime import GuardedSession, GuardPolicy
+
+    plan = _guard_plan()
+    pol = GuardPolicy(validate_every=4, checkpoint_every=8)
+    n_arrays = len(fstate_to_arrays(build_session(plan).init_state()))
+    for feed, batches in (("device", dev_batches), ("host", host)):
+        sites: set = set()
+        _, _, plain, _ = _drive(torch, build_session(plan), batches,
+                                record=False, count_syncs=True)
+        guard = GuardedSession(build_session(plan), pol)
+        _, _, guarded, _ = _drive(torch, guard, batches, record=False,
+                                  count_syncs=True, sync_sites=sites)
+        check(guard.health.degrades == [] and guard.health.retries == 0,
+              f"a fault-free guarded run degraded: {guard.health.degrades}")
+        # per steady step i (i >= 1, so step index i + 1 after it): the
+        # admission check on a tensor, the overflow read, the validator
+        # every validate_every, save_state's reads every checkpoint_every
+        want = [(feed == "device") + 1
+                + ((i + 1) % pol.validate_every == 0)
+                + n_arrays * ((i + 1) % pol.checkpoint_every == 0)
+                for i in range(1, len(batches))]
+        extra = [g - p for g, p in zip(guarded, plain)]
+        log(f"  syncs per steady step, {feed}-fed, validate_every="
+            f"{pol.validate_every}, checkpoint_every={pol.checkpoint_every}: "
+            f"guarded {guarded}, unguarded {plain}; the guard's {extra}, "
+            f"budget {want}")
+        for site in sorted(sites)[:12]:
+            log(f"    sync at {site}")
+        check(extra == want, f"{feed}-fed guarded syncs {extra} != budget "
+              f"{want}")
+
+    fin = []
+    for b in host:
+        t0 = time.perf_counter()
+        check(bool(np.isfinite(b).all()), "a stream batch is not finite")
+        fin.append((time.perf_counter() - t0) * 1e3)
+    log(f"  host np.isfinite(cols).all() on a {BATCH_ROWS} x 3 f32 batch "
+        f"({smi}): median {np.median(fin):.2f} ms, min {min(fin):.2f}, "
+        f"max {max(fin):.2f}")
+    dev_fin = _device_ms(torch, lambda b: torch.isfinite(b).all(),
+                         [(b,) for b in dev_batches[:4]], 40)
+    log(f"  device torch.isfinite(cols).all() ({smi}): {dev_fin:.4f} ms "
+        f"by CUDA events (before its one read)")
+
+    for feed, batches in (("host", host), ("device", dev_batches)):
+        rates = {"unguarded": [], "guarded": []}
+        for i in range(PAIRS):
+            order = [("unguarded", lambda: build_session(plan)),
+                     ("guarded", lambda: GuardedSession(build_session(plan)))]
+            for label, make in (order if i % 2 == 0 else order[::-1]):
+                _, _, _, seconds = _drive(torch, make(), batches,
+                                          record=False, count_syncs=False)
+                rates[label].append(len(batches) * BATCH_ROWS / seconds)
+        q = {k: np.percentile(v, [25, 50, 75]) for k, v in rates.items()}
+        ms = {k: len(batches) * BATCH_ROWS / np.array(v) * 1e3 / len(batches)
+              for k, v in rates.items()}
+        log(f"  paired {feed}-fed, GuardPolicy() vs unguarded, {PAIRS} "
+            f"pairs ({smi}): guarded median {q['guarded'][1]:,.0f} rows/s "
+            f"(quartiles {q['guarded'][0]:,.0f} - {q['guarded'][2]:,.0f}), "
+            f"unguarded median {q['unguarded'][1]:,.0f} (quartiles "
+            f"{q['unguarded'][0]:,.0f} - {q['unguarded'][2]:,.0f}); ms a "
+            f"step guarded {np.round(ms['guarded'], 2).tolist()}, "
+            f"unguarded {np.round(ms['unguarded'], 2).tolist()}")
+
+
+def _serve_runs(torch, smi: str) -> None:
+    """(c) The admission server through the serve CLI at its defaults on
+    the card, the same on the CPU, and at 65,536 requests on the card."""
+    import tempfile
+
+    from repro_torch.launch import serve
+
+    argv = ["--guarded"]
+    with tempfile.TemporaryDirectory() as d:
+        card = serve.run(argv + ["--bench-out", f"{d}/serve.json"])
+        check(Path(d, "serve.json").is_file(), "--bench-out wrote nothing")
+        cpu = serve.run(argv + ["--device", "cpu"])
+        big = serve.run(argv + ["--requests", str(SERVE_REQUESTS[1])])
+    for label, r, n in (("card", card, SERVE_REQUESTS[0]),
+                        ("cpu", cpu, SERVE_REQUESTS[0]),
+                        ("65536", big, SERVE_REQUESTS[1])):
+        p = r.payload
+        check(r.rc == 0 and p["parity"]["ok"],
+              f"serve {label}: rc {r.rc}, parity {p['parity']}")
+        check(p["guard"]["degrades"] == [] and p["quarantined"] == 0,
+              f"serve {label}: guard {p['guard']}")
+        # the served path's own launches: one chain launch a micro-batch
+        # and one for the warmup on the card, none of the twins' on the CPU
+        want = n // 64 + 1 if label != "cpu" else 0
+        check(p["launches"] == dict(chain=want, skip=0, gather=0, stats=0),
+              f"serve {label}: launches {p['launches']}, want chain {want}")
+    check(card.payload["config"]["device"].startswith("cuda")
+          and cpu.payload["config"]["device"] == "cpu",
+          "serve: the runs' devices")
+    same = serve._parity(card.report, cpu.report.masks,
+                         cpu.report.state_blob)
+    check(same["ok"], f"serve: the card != the CPU ({same})")
+    for label, r in (("card, 4096", card), ("card, 65536", big),
+                     ("cpu, 4096", cpu)):
+        m = r.payload
+        lat = m["admission_latency_ms"]
+        gate_s = m["gate_us_per_request"] * m["decided"] / 1e6
+        ref_ms = m["parity"]["reference_s"] / m["batches"] * 1e3
+        log(f"  (c) serve {label} requests ({smi}): "
+            f"{m['requests_per_sec']:,.0f} req/s, p50 {lat['p50']:.3f} ms, "
+            f"p99 {lat['p99']:.3f} ms, wall {m['wall_s']:.3f} s, slot "
+            f"occupancy {m['slot_occupancy']:.3f}; the gate "
+            f"{m['gate_us_per_request']:.2f} us/request, "
+            f"{gate_s / m['wall_s']:.1%} of the wall, "
+            f"{gate_s / m['batches'] * 1e3:.3f} ms a micro-batch in the "
+            f"server against {ref_ms:.3f} ms in the synchronous reference "
+            f"(no threads, one mask read each); admitted {m['admitted']} of "
+            f"{m['decided']}; guard[{r.report.health_line}]")
+    log(f"  (c) parity queued == synchronous on all three runs; card == CPU "
+        f"on masks and the final state blob; the served path's launches "
+        f"{card.payload['launches']} (4096), {big.payload['launches']} "
+        f"(65536)")
 
 
 if __name__ == "__main__":

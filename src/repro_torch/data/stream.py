@@ -177,6 +177,51 @@ def gen_batch(seed: int, batch_index: int, row_start: int, n_rows: int,
     return cols if order is None else np.take(cols, order, axis=1)
 
 
+class RequestStream:
+    """Any counter-based per-batch generator as a restartable stream.
+
+    Adapts ``gen(batch_index, row_start, n_rows) -> f32[C, n_rows]`` to
+    the ``LogStream`` contract (``cursor`` / ``state`` / ``restore`` /
+    ``batch_rows`` / iteration yielding ``RecordBatch``), so the serving
+    ingest thread, ``GuardedSession.run_log_stream``'s rollback cursor
+    replay, and the synchronous admission-parity reference all drive
+    synthetic request traffic exactly like log batches. ``gen`` MUST be
+    pure in its arguments (counter-based, like ``gen_batch`` above) —
+    replay and the parity reference regenerate batches by index.
+    """
+
+    def __init__(self, gen, total_rows: int, batch_rows: int = 256,
+                 start_batch: int = 0):
+        if total_rows % batch_rows:
+            total_rows = (total_rows // batch_rows) * batch_rows
+        if total_rows <= 0:
+            raise ValueError("total_rows must cover at least one batch")
+        self.gen = gen
+        self.total_rows = total_rows
+        self.batch_rows = batch_rows
+        self.cursor = start_batch  # global batch index; checkpointable
+
+    @property
+    def n_batches(self) -> int:
+        return self.total_rows // self.batch_rows
+
+    def state(self) -> dict:
+        return {"cursor": self.cursor}
+
+    def restore(self, state: dict) -> None:
+        self.cursor = int(state["cursor"])
+
+    def __iter__(self):
+        from repro_torch.data.schema import RecordBatch
+
+        while self.cursor < self.n_batches:
+            b = self.cursor
+            self.cursor += 1   # read live by rollback replay — rewind-safe
+            cols = self.gen(b, b * self.batch_rows, self.batch_rows)
+            yield RecordBatch(np.asarray(cols, np.float32),
+                              row_offset=b * self.batch_rows)
+
+
 class LogStream:
     """Restartable, shardable iterator of RecordBatches.
 

@@ -23,6 +23,15 @@ Each kernel has a wrapper and a twin:
     same per-tile counters, the same in-tile pack — written over a
     ``[C, T, tile]`` view of the padded batch, so it runs at full width on
     either device. Nothing on the main path calls a twin for a CUDA tensor.
+
+A failed build (no ``nvcc``, a compile error, a library that does not
+load) and a launch that returns a CUDA error raise ``KernelError``, a
+``RuntimeError`` that no retry can cure. A wrapper that refuses to launch
+(more than ``MAX_PREDS`` predicates, a misaligned column, a wrong device,
+dtype or shape) raises ``KernelRefusal``, a ``KernelError`` that is also a
+``ValueError``. The guarded runtime (``repro_torch.runtime.guard``)
+re-raises both rather than retrying the step or degrading to the ``torch``
+engine, which would hide a kernel that does not run.
 """
 
 from __future__ import annotations
@@ -54,6 +63,16 @@ def build_dir() -> Path:
     return Path(__file__).resolve().parents[4] / "build" / "repro_torch_kernels"
 
 
+class KernelError(RuntimeError):
+    """The kernel library did not build or load, or a launch returned a
+    CUDA error: a fault of the build or the device, never transient."""
+
+
+class KernelRefusal(KernelError, ValueError):
+    """A wrapper refused to launch: its inputs break the kernel's
+    contract. The same plan and inputs are refused again on any retry."""
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -61,8 +80,8 @@ def _nvcc() -> str:
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: the CUDA kernels of repro_torch are "
-                       "built with the CUDA toolkit's nvcc")
+    raise KernelError("nvcc not found: the CUDA kernels of repro_torch are "
+                      "built with the CUDA toolkit's nvcc")
 
 
 class _Library:
@@ -71,7 +90,11 @@ class _Library:
     def __init__(self, path: Path, log: str):
         self.path = path
         self.log = log
-        lib = ctypes.CDLL(str(path))
+        try:
+            lib = ctypes.CDLL(str(path))
+        except OSError as e:
+            raise KernelError(f"cannot load the kernel library {path}: "
+                              f"{e}") from e
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         f32 = ctypes.c_float
         lib.filter_chain_launch.argtypes = [
@@ -119,7 +142,7 @@ def build() -> _Library:
         log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            raise KernelError(f"nvcc failed ({proc.returncode}):\n{log}")
         log_path.write_text(log)
         os.replace(tmp, so)
     log = log_path.read_text() if log_path.exists() else ""
@@ -129,11 +152,18 @@ def build() -> _Library:
 
 def _check_cuda(name: str, t: torch.Tensor, dtype, device) -> None:
     if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
+        raise KernelRefusal(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+        raise KernelRefusal(f"{name} has dtype {t.dtype}, expected {dtype}")
     if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+        raise KernelRefusal(f"{name} must be contiguous")
+
+
+def _check_launch(name: str, err: int) -> None:
+    """The launch-status check: a nonzero CUDA error code from a launch
+    entry point raises ``KernelError``."""
+    if err:
+        raise KernelError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def _stream_ptr(device) -> int:
@@ -155,24 +185,25 @@ def filter_chain_kernel(columns: torch.Tensor, specs, perm: torch.Tensor,
     a sub-tile with a flag > 0 start non-pending, and valid rows of pass
     sub-tiles survive.
     """
+    n_preds, n_groups = specs.n, specs.n_groups
+    if n_preds > MAX_PREDS:      # the twin holds the kernel's limit too
+        raise KernelRefusal(f"at most {MAX_PREDS} predicates, got "
+                            f"{n_preds}")
     dev = columns.device
     if dev.type == "cpu":
         return filter_chain_twin(columns, specs, perm, meta,
                                  compact=compact, fill=fill,
                                  skip_decisions=skip_decisions)
     if dev.type != "cuda":
-        raise ValueError(f"filter_chain_kernel: unsupported device {dev}")
+        raise KernelRefusal(f"filter_chain_kernel: unsupported device {dev}")
     n_cols, n_rows_p = columns.shape
     tile = DEFAULT_TILE
     if n_rows_p == 0 or n_rows_p % tile:
-        raise ValueError(f"padded rows {n_rows_p} not a positive multiple "
-                         f"of tile {tile}")
-    n_preds, n_groups = specs.n, specs.n_groups
-    if n_preds > MAX_PREDS:
-        raise ValueError(f"at most {MAX_PREDS} predicates, got {n_preds}")
+        raise KernelRefusal(f"padded rows {n_rows_p} not a positive multiple "
+                            f"of tile {tile}")
     _check_cuda("columns", columns, torch.float32, dev)
     if columns.data_ptr() % 16:
-        raise ValueError("columns must be 16-byte aligned")
+        raise KernelRefusal("columns must be 16-byte aligned")
     for name in ("column", "op", "rounds", "group_ids"):
         _check_cuda(name, getattr(specs, name), torch.int32, dev)
     for name in ("t1", "t2"):
@@ -180,14 +211,14 @@ def filter_chain_kernel(columns: torch.Tensor, specs, perm: torch.Tensor,
     _check_cuda("perm", perm, torch.int32, dev)
     _check_cuda("meta", meta, torch.int32, dev)
     if perm.shape != (n_preds,) or meta.shape != (4,):
-        raise ValueError("perm must be i32[P] and meta i32[4]")
+        raise KernelRefusal("perm must be i32[P] and meta i32[4]")
     pass_ptr = fail_ptr = None
     if skip_decisions is not None:
         for name, d in zip(("pass", "fail"), skip_decisions):
             _check_cuda(name, d, torch.int32, dev)
             if d.shape != (n_rows_p // STAT_TILE,):
-                raise ValueError(f"{name} decisions must be i32[Rp/"
-                                 f"{STAT_TILE}]")
+                raise KernelRefusal(f"{name} decisions must be i32[Rp/"
+                                    f"{STAT_TILE}]")
         pass_ptr = skip_decisions[0].data_ptr()
         fail_ptr = skip_decisions[1].data_ptr()
 
@@ -212,9 +243,7 @@ def filter_chain_kernel(columns: torch.Tensor, specs, perm: torch.Tensor,
         mask.data_ptr(), active.data_ptr(), cut.data_ptr(), gcut.data_ptr(),
         nmon.data_ptr(), packed_ptr, cnt_ptr, fill, pass_ptr, fail_ptr,
         _stream_ptr(dev))
-    if err:
-        raise RuntimeError(f"filter_chain kernel launch failed: CUDA error "
-                           f"{err}")
+    _check_launch("filter_chain", err)
     filter_chain_kernel.launches += 1
     if skip_decisions is not None:
         filter_chain_kernel.skip_launches += 1
@@ -326,28 +355,26 @@ def compact_gather_kernel(packed_tiles: torch.Tensor, offsets: torch.Tensor,
         return compact_gather_twin(packed_tiles, offsets, counts, capacity,
                                    fill=fill)
     if dev.type != "cuda":
-        raise ValueError(f"compact_gather_kernel: unsupported device {dev}")
+        raise KernelRefusal(f"compact_gather_kernel: unsupported device {dev}")
     n_cols, n_rows_p = packed_tiles.shape
     tile = DEFAULT_TILE
     if capacity < 1:
-        raise ValueError("capacity must be >= 1")
+        raise KernelRefusal("capacity must be >= 1")
     if n_rows_p == 0 or n_rows_p % tile:
-        raise ValueError(f"padded rows {n_rows_p} not a positive multiple "
-                         f"of tile {tile}")
+        raise KernelRefusal(f"padded rows {n_rows_p} not a positive multiple "
+                            f"of tile {tile}")
     n_tiles = n_rows_p // tile
     _check_cuda("packed_tiles", packed_tiles, torch.float32, dev)
     _check_cuda("offsets", offsets, torch.int32, dev)
     _check_cuda("counts", counts, torch.int32, dev)
     if offsets.shape != (n_tiles,) or counts.shape != (n_tiles,):
-        raise ValueError("offsets and counts must be i32[T]")
+        raise KernelRefusal("offsets and counts must be i32[T]")
     out = torch.empty((n_cols, capacity), dtype=torch.float32, device=dev)
     err = build().lib.compact_gather_launch(
         packed_tiles.data_ptr(), n_cols, n_rows_p, tile, n_tiles,
         offsets.data_ptr(), counts.data_ptr(), capacity, fill,
         out.data_ptr(), _stream_ptr(dev))
-    if err:
-        raise RuntimeError(f"compact_gather kernel launch failed: CUDA error "
-                           f"{err}")
+    _check_launch("compact_gather", err)
     compact_gather_kernel.launches += 1
     return out
 
@@ -384,23 +411,21 @@ def tile_stats_kernel(columns: torch.Tensor):
     if dev.type == "cpu":
         return tile_stats_twin(columns)
     if dev.type != "cuda":
-        raise ValueError(f"tile_stats_kernel: unsupported device {dev}")
+        raise KernelRefusal(f"tile_stats_kernel: unsupported device {dev}")
     n_cols, n_rows_p = columns.shape
     if n_rows_p == 0 or n_rows_p % DEFAULT_TILE:
-        raise ValueError(f"padded rows {n_rows_p} not a positive multiple "
-                         f"of tile {DEFAULT_TILE}")
+        raise KernelRefusal(f"padded rows {n_rows_p} not a positive multiple "
+                            f"of tile {DEFAULT_TILE}")
     _check_cuda("columns", columns, torch.float32, dev)
     if columns.data_ptr() % 16:
-        raise ValueError("columns must be 16-byte aligned")
+        raise KernelRefusal("columns must be 16-byte aligned")
     n_sub = n_rows_p // STAT_TILE
     mins = torch.empty((n_cols, n_sub), dtype=torch.float32, device=dev)
     maxs = torch.empty_like(mins)
     err = build().lib.tile_stats_launch(
         columns.data_ptr(), n_cols * n_sub, mins.data_ptr(), maxs.data_ptr(),
         _stream_ptr(dev))
-    if err:
-        raise RuntimeError(f"tile_stats kernel launch failed: CUDA error "
-                           f"{err}")
+    _check_launch("tile_stats", err)
     tile_stats_kernel.launches += 1
     return mins, maxs
 
@@ -417,6 +442,14 @@ def tile_stats_twin(columns: torch.Tensor, *, tile: int = DEFAULT_TILE):
         raise ValueError(f"padded rows {n_rows_p} not a multiple of {tile}")
     sub = columns.reshape(n_cols, n_rows_p // STAT_TILE, STAT_TILE)
     return sub.amin(dim=2), sub.amax(dim=2)
+
+
+def launch_counts() -> dict:
+    """Every wrapper's launch counters, by kernel."""
+    return dict(chain=filter_chain_kernel.launches,
+                skip=filter_chain_kernel.skip_launches,
+                gather=compact_gather_kernel.launches,
+                stats=tile_stats_kernel.launches)
 
 
 def reset_launch_counts() -> None:

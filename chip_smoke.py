@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Runs from the root of a checkout, on a machine with one NVIDIA H100, in
-five phases; any failure exits non-zero:
+six phases; any failure exits non-zero:
 
 1. Device: the card's name and power limit, torch and CUDA versions; the
    kernels are built from ``src/repro_torch/kernels/filter_chain/csrc``
@@ -102,6 +102,29 @@ five phases; any failure exits non-zero:
    its defaults (4096 requests, guarded) on the card and on the CPU —
    queued == synchronous, card == CPU on masks and the final state — and
    at 65,536 requests, with req/s and p99 admission latency.
+6. Sharding on the card (``repro_torch.core.sharded``): 4 shards of 2^22
+   rows a step, all on this card, the batch f32[3, 4 x 2^22] holding phase
+   3's batches 4k .. 4k+3 (the stream's round-robin partitions), 4 steps.
+   (a) ``per_shard``, ``per_batch`` and ``centralized`` x ``eager`` /
+   ``deferred`` / ``deferred-async`` on both engines: ``cuda`` equals
+   ``torch`` bit for bit (masks, perm trajectories, ``save_state``
+   arrays), ``per_shard`` equals four unsharded sessions on the slices,
+   ``centralized`` holds one perm on every shard; rows/s, syncs per steady
+   step (budget 0: a sharded step reads nothing, a deferred boundary fires
+   from the host mirror), one chain launch per shard a step, and the
+   profile of a steady step with the strided slices' copies timed. (b) The
+   trainer's sharded input stage: ``make_pipeline`` over 4 shard streams,
+   ``centralized``, ``deferred``, ``capacity="auto"``,
+   ``TokenizeSpec(152_064, 8)``, the streams' batches served from phase
+   3's (the same bytes): LM batches equal the ``torch`` engine's; rows/s
+   and tokens/s, and a step's host time split into the shard batches'
+   concatenation, the upload and the session step; the state after 3
+   steps restores 4→4 bit-identically, and 4→2 and 2→4 with
+   ``reshard_state_arrays``' arrays. (c) A guarded 4-shard soak:
+   ``per_shard``, capacity 1,048,576 a shard, one poisoned batch
+   (quarantined with per-shard zeros), one storm (kept whole), one killed
+   step; clean batches equal the fault-free run. Its launch counts go into
+   the kernels' JSON as ``launches_sharded``.
 
 The last two lines before the final one are the kernels' JSON record and
 ``nvidia-smi --query-gpu=name,power.limit``'s line; the final line is
@@ -173,6 +196,7 @@ def main() -> int:
     phase_ingest(torch, dev, runs, smi)
     kernels = phase_numbers(torch, dev, runs, errs)
     phase_guarded(torch, dev, runs, smi)
+    phase_sharded(torch, dev, runs, kernels, smi)
     check(not sass_failures, "phase 1: " + "; ".join(sass_failures))
     log(json.dumps({"kernels": kernels}))
     log(smi)
@@ -1005,20 +1029,28 @@ def _same_lm_batch(got, want, what: str) -> None:
               and np.array_equal(got[k], want[k]), f"{what}: {k} differ")
 
 
-def _profiled(torch, fn, n: int) -> list:
+def _profiled(torch, fn, n: int, *, ops: bool = False):
     """The device kernels (``key_averages`` rows) of ``n`` calls of ``fn``
-    under ``torch.profiler``."""
+    under ``torch.profiler``; with ``ops``, also the trace's op events
+    (``prof.events()``, input shapes recorded)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=ops) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    return (kernels, prof.events()) if ops else kernels
+
+
+def _kernels_under(op) -> list:
+    """The device kernels an op event and its children launched."""
+    return list(op.kernels) + [k for ch in op.cpu_children
+                               for k in _kernels_under(ch)]
 
 
 def phase_ingest(torch, dev, runs, smi: str) -> None:
@@ -1880,6 +1912,438 @@ def _serve_runs(torch, smi: str) -> None:
         f"on masks and the final state blob; the served path's launches "
         f"{card.payload['launches']} (4096), {big.payload['launches']} "
         f"(65536)")
+
+
+# ===================================================================== 6
+N_SHARDS = 4                   # S shards x 2^22 rows: a [3, 4 x 2^22] batch
+SHARD_CASES = (("per_shard", "eager"), ("per_batch", "eager"),
+               ("centralized", "eager"), ("centralized", "deferred"),
+               ("centralized", "deferred-async"))
+SHARD_FAULTS = dict(poison=(1,), storm=(2,), kill=(3,))
+
+
+def _sharded_plan(**kw):
+    from repro_torch.configs.paper_filters import PaperWorkload, filter_chain
+    from repro_torch.core import FilterPlan
+
+    kw.setdefault("shards", N_SHARDS)
+    return FilterPlan(filter_chain("cnf"), PaperWorkload().ordering, **kw)
+
+
+def phase_sharded(torch, dev, runs, kernels: list, smi: str) -> None:
+    """Phase 6: sharding on the card (see the module docstring)."""
+    s = N_SHARDS
+    log(f"== phase 6: sharding ({s} shards x {BATCH_ROWS} rows a step, "
+        "paper CNF chain, on one card)")
+    t0 = time.perf_counter()
+    # round-robin partitions of phase 3's stream: step k holds global
+    # batches s·k .. s·k+s-1, shard i's as rows [i·R, (i+1)·R)
+    batches = [torch.cat(runs["batches"][k * s:(k + 1) * s], dim=1)
+               for k in range(N_BATCHES // s)]
+    launches = {}
+    launches["scopes"] = _sharded_scopes(torch, batches, smi)
+    launches["pipeline"] = _sharded_pipeline(torch, runs, smi)
+    launches["soak"] = _sharded_soak(torch, batches, smi)
+    mask_only = launches["scopes"]["chain"]
+    compact = launches["pipeline"]["chain"] + launches["soak"]["chain"]
+    gather = launches["pipeline"]["gather"] + launches["soak"]["gather"]
+    for row in kernels:
+        got = {"filter_chain": mask_only, "filter_chain[compact]": compact,
+               "compact_gather": gather}.get(row["name"])
+        if got is not None:
+            row["launches_sharded"] = got
+    log(f"  phase 6 launches {launches}")
+    log(f"  phase 6 took {time.perf_counter() - t0:.1f} s ({smi})")
+
+
+def _sharded_scopes(torch, batches, smi: str) -> dict:
+    """(a) Every scope and exchange mode on both engines: cuda == torch,
+    per_shard == four unsharded sessions on the slices, one perm on every
+    shard under centralized; rows/s and syncs per steady step."""
+    from repro_torch.core import build_session
+    from repro_torch.kernels.filter_chain import filter_chain as fc
+
+    s, r, n = N_SHARDS, BATCH_ROWS, len(batches)
+    total = {"chain": 0, "gather": 0}
+    recs = {}
+    for scope, exchange in SHARD_CASES:
+        rec = {}
+        for engine in ("cuda", "torch"):
+            plan = _sharded_plan(engine=engine, scope=scope,
+                                 exchange=exchange)
+            fc.reset_launch_counts()
+            session = build_session(plan)
+            state, steps, syncs, _ = _drive(torch, session, batches,
+                                            record=True, count_syncs=True)
+            got = _launch_counts()
+            _, _, _, seconds = _drive(torch, build_session(plan), batches,
+                                      record=False, count_syncs=False)
+            rec[engine] = dict(state=state, steps=steps, syncs=syncs,
+                               arrays=session.save_state(state)["arrays"])
+            if engine == "cuda":
+                total["chain"] += got["chain"]
+                check(got["chain"] == s * n and got["gather"] == 0,
+                      f"{scope}/{exchange}: launches {got}, want chain "
+                      f"{s * n} (one a shard a step)")
+            else:
+                check(not any(got.values()),
+                      f"torch engine launched kernels {got}")
+            check(state.perm.device.type == "cuda"
+                  and steps[-1]["mask"].device.type == "cuda",
+                  f"{scope}/{exchange}: state or mask left the card")
+            log(f"  (a) {scope}/{exchange} engine={engine}: "
+                f"{n * s * r / seconds:,.0f} rows/s ({seconds * 1e3:.1f} ms "
+                f"for {n} steps of {s} x {r} rows; {smi}); syncs per "
+                f"steady step {syncs}; launches {got}; final epochs "
+                f"{state.epoch.tolist()}, perms {state.perm.tolist()}")
+            # PERF.md §2: a sharded step reads nothing, a deferred boundary
+            # included (it fires from the host mirror)
+            check(max(syncs) == 0, f"{scope}/{exchange} engine={engine}: "
+                  f"{max(syncs)} syncs in a steady step, budget 0")
+        _same_run(torch, rec["cuda"], rec["torch"],
+                  f"{scope}/{exchange}: cuda vs torch")
+        check(int(rec["cuda"]["state"].epoch.min()) >= n,
+              f"{scope}/{exchange}: epochs did not fire")
+        if scope == "centralized":
+            for i, st in enumerate(rec["cuda"]["steps"]):
+                check(bool((st["perm"] == st["perm"][0]).all()),
+                      f"centralized/{exchange}: shards' perms differ, "
+                      f"step {i}")
+        recs[(scope, exchange)] = rec
+    log(f"  (a) cuda == torch on masks, perm trajectories and save_state "
+        f"arrays in all {len(SHARD_CASES)} cases; centralized: one perm on "
+        f"every shard at every step")
+
+    per = recs[("per_shard", "eager")]["cuda"]
+    for i in range(s):
+        session = build_session(_sharded_plan(engine="cuda", shards=1))
+        st = session.init_state()
+        for k, cols in enumerate(batches):
+            st, res = session.step(st, cols[:, i * r:(i + 1) * r])
+            check(torch.equal(res.mask, per["steps"][k]["mask"][
+                i * r:(i + 1) * r])
+                  and torch.equal(st.perm, per["steps"][k]["perm"][i]),
+                  f"per_shard: shard {i} differs from an unsharded "
+                  f"session on its slice, step {k}")
+        for key, v in session.save_state(st)["arrays"].items():
+            check((per["arrays"][key][i] == v).all(),
+                  f"per_shard: shard {i}'s {key} differs")
+    log(f"  (a) per_shard == {s} unsharded cuda sessions on the slices "
+        "(masks, perms, save_state arrays)")
+
+    # the profile of a steady sharded step: the strided slices' copies
+    session = build_session(_sharded_plan(engine="cuda",
+                                          scope="centralized"))
+    holder = [session.init_state()]
+    for cols in batches[:2]:
+        holder[0], _ = session.step(holder[0], cols)
+
+    def step():
+        holder[0], _ = session.step(holder[0], batches[2])
+
+    ev, events = _profiled(torch, step, 4, ops=True)
+    dev_us = sum(e.self_device_time_total for e in ev) / 4
+    n_k = sum(e.count for e in ev) / 4
+    chain = [e for e in ev if "chain_kernel" in e.key]
+    chain_us = sum(e.self_device_time_total for e in chain) / 4
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
+    # the wrapper's .contiguous() of each shard's strided [C, R] slice
+    # (ops._pad_cols), read off the step's own trace: the contiguous ops
+    # on a [C, R] input that copied (one on a contiguous input launches
+    # nothing) and the kernels they launched
+    c = int(batches[2].shape[0])
+    pads = [e for e in events if e.name == "aten::contiguous"
+            and e.cpu_children and e.input_shapes
+            and list(e.input_shapes[0]) == [c, r]]
+    check(len(pads) == 4 * s, f"profile: {len(pads)} strided-slice "
+          f"copies in 4 steps, expected {4 * s}")
+    pad_k = [k for e in pads for k in _kernels_under(e)]
+    pad_us = sum(k.duration for k in pad_k) / 4
+    pad_names = sorted({k.name[:60] for k in pad_k})
+    # every kernel of the step with "copy" in its name, for comparison
+    copies = [e for e in ev if "copy" in e.key.lower()]
+    # the same copy alone, by CUDA events (no other kernel around it)
+    slices = [(batches[2][:, i * r:(i + 1) * r],) for i in range(s)]
+    copy_ms = _device_ms(torch, lambda x: x.contiguous(), slices, 40)
+    wall = _step_seconds(torch, step, 8)
+    log(f"  (a) profile of a steady centralized/eager step on cuda ({smi}): "
+        f"{dev_us:.1f} us of device time in {n_k:.0f} kernels, "
+        f"{wall * 1e3:.2f} ms a step on the host clock "
+        f"({dev_us / 1e6 / wall:.1%} busy); chain_kernel {chain_us:.1f} us "
+        f"in {sum(e.count for e in chain) / 4:.0f} launches; the strided-"
+        f"slice copies in the step's trace {pad_us:.1f} us in "
+        f"{len(pad_k) / 4:.0f} kernels a step "
+        f"({pad_us / max(dev_us, 1e-9):.1%} of its device time; "
+        f"{pad_names}); every kernel named *copy* "
+        f"{sum(e.self_device_time_total for e in copies) / 4:.1f} us in "
+        f"{sum(e.count for e in copies) / 4:.0f} a step; one such copy "
+        f"alone {copy_ms:.4f} ms by CUDA events; top kernels (us a step, "
+        f"count): "
+        + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 4:.1f} "
+                    f"x{e.count / 4:.0f}" for e in top))
+    return total
+
+
+def _step_seconds(torch, step, n: int) -> float:
+    """Median host-clock seconds of ``n`` synchronized calls of ``step``."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[n // 2]
+
+
+def _resharded(arrays: dict, new_shards: int) -> dict:
+    """What ``reshard_state_arrays`` gives a partitioned source whose
+    shards agree on every derived array (centralized) for a partitioned
+    target: each sum over the shards split evenly, the largest row
+    counter, and the rest as it was."""
+    import numpy as np
+
+    out = {}
+    for k, v in arrays.items():
+        if k == "rows_into_epoch":
+            piece = v.max()
+        elif k.startswith("stats."):
+            piece = (v.astype(np.float64).sum(axis=0) / new_shards) \
+                .astype(v.dtype)
+        else:
+            check(bool((v == v[0]).all()), f"the source's {k} differs "
+                  "between shards")
+            piece = v[0]
+        out[k] = np.broadcast_to(np.asarray(piece)[None],
+                                 (new_shards,) + np.shape(piece))
+    return out
+
+
+def _same_arrays(got: dict, want: dict, what: str) -> None:
+    for k, v in want.items():
+        check(got[k].dtype == v.dtype and got[k].shape == v.shape
+              and (got[k] == v).all(), f"{what}: {k} differs")
+
+
+def _sharded_pipeline(torch, runs, smi: str) -> dict:
+    """(b) The trainer's sharded input stage through ``make_pipeline``:
+    cuda == torch on every LM batch, then restarts 4→4, 4→2 and 2→4."""
+    import numpy as np
+
+    from repro_torch.configs.paper_filters import PaperWorkload
+    from repro_torch.core import TokenizeSpec, build_session
+    from repro_torch.data import make_pipeline
+    from repro_torch.data import stream as stream_lib
+    from repro_torch.kernels.filter_chain import filter_chain as fc
+
+    s, r = N_SHARDS, BATCH_ROWS
+    n = N_BATCHES // s
+    wl = PaperWorkload()
+    spec = TokenizeSpec(INGEST_VOCAB, 8)
+    per_batch = INGEST_LM["batch_size"] * (INGEST_LM["seq_len"] + 1)
+
+    def plan(engine, shards=s):
+        return _sharded_plan(engine=engine, shards=shards,
+                             scope="centralized", exchange="deferred",
+                             compact=True, capacity="auto", tokenize=spec)
+
+    def pipeline(engine, shards=s):
+        return make_pipeline(build_session(plan(engine, shards)),
+                             total_rows=N_BATCHES * r,
+                             batch_rows=r, seed=0, drift=wl.drift,
+                             vocab_size=INGEST_VOCAB, **INGEST_LM)
+
+    # the streams' batches are phase 3's (the same generator, seed and
+    # drift): served from host memory, so the pipeline is timed, not numpy
+    host = {b: c.cpu().numpy() for b, c in enumerate(runs["batches"])}
+    generate = stream_lib.gen_batch
+
+    def served(seed, b, start, rows, drift, layout="iid"):
+        check(seed == 0 and rows == r and layout == "iid"
+              and drift == wl.drift, "phase 6b asked for another stream")
+        return host[b]
+
+    stream_lib.gen_batch = served
+    try:
+        lm, st, at = [], None, 0
+        fc.reset_launch_counts()
+        pipe = pipeline("cuda")
+        check(type(pipe).__name__ == "ShardedPipeline"
+              and pipe._device_tokenize, "make_pipeline: not a sharded "
+              "device-tokenize pipeline")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st_s = 0.0
+        for b in pipe:
+            lm.append(b)
+            if st is None and pipe.streams[-1].cursor == 3 * s:
+                t1 = time.perf_counter()
+                st, at = pipe.state(), len(lm)
+                st_s = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0 - st_s
+        got = _launch_counts()
+        check(got["chain"] == s * n and got["gather"] == s * n,
+              f"sharded pipeline launches {got}, want {s * n} each")
+        check(pipe.rows_in == n * s * r and len(lm) > 0,
+              f"the pipeline took {pipe.rows_in} rows, emitted {len(lm)}")
+        ref = pipeline("torch")
+        i = -1
+        for i, b in enumerate(ref):
+            check(i < len(lm), "the torch pipeline emitted more batches")
+            _same_lm_batch(b, lm[i], f"sharded pipeline cuda vs torch, LM "
+                           f"batch {i}")
+        check(i + 1 == len(lm), f"torch emitted {i + 1}, cuda {len(lm)}")
+        n_tok = len(lm) * per_batch
+        log(f"  (b) sharded pipeline (centralized, deferred, capacity=auto, "
+            f"TokenizeSpec({INGEST_VOCAB}, 8)), {n} steps of {s} x {r} "
+            f"rows: cuda == torch on all {len(lm)} LM batches "
+            f"({pipe.rows_pass} of {pipe.rows_in} rows kept); "
+            f"{n * s * r / seconds:,.0f} rows/s, {n_tok / seconds:,.0f} "
+            f"tokens/s on the host clock ({seconds:.2f} s, stream served "
+            f"from host memory; {smi}); launches {got}; last metrics "
+            f"n_dropped_per_shard {pipe.last_metrics['n_dropped_per_shard']}")
+
+        # where a step's host time goes: the shard batches' concatenation,
+        # the pageable upload, the session step with the tokens' copy back
+        parts = [host[b] for b in range(s)]
+        cat_s = _step_seconds(torch, lambda: np.concatenate(parts, axis=1), 3)
+        cat = np.concatenate(parts, axis=1)
+        up_s = _step_seconds(torch, lambda: torch.as_tensor(cat, device="cuda"),
+                             3)
+        cols = torch.as_tensor(cat, device="cuda")
+        session = build_session(plan("cuda"))
+        holder = [session.init_state()]
+
+        def step():
+            holder[0], res = session.step(holder[0], cols)
+            res.host_tokens()
+
+        step()
+        step_s = _step_seconds(torch, step, 5)
+        log(f"  (b) a pipeline step's parts ({smi}), host clock medians: "
+            f"concatenating the {s} shard batches {cat_s * 1e3:.1f} ms, the "
+            f"pageable upload of {cat.nbytes / 2**20:.0f} MiB "
+            f"{up_s * 1e3:.1f} ms, session.step + host_tokens on the "
+            f"uploaded batch {step_s * 1e3:.1f} ms; the whole step "
+            f"{seconds / n * 1e3:.1f} ms")
+
+        # 4 → 4: the next batches bit-identical
+        n_next = st.buffer.size // per_batch + 2
+        same = pipeline("cuda")
+        same.restore(st)
+        nxt = [b for _, b in zip(range(n_next), same)]
+        check(len(nxt) == n_next and at + n_next <= len(lm),
+              f"4->4 restart emitted {len(nxt)} of {n_next}")
+        for j, b in enumerate(nxt):
+            _same_lm_batch(b, lm[at + j], f"4->4 restart, LM batch {at + j}")
+        check(same.streams[-1].cursor == n * s, "4->4 restart: no step 4")
+
+        # 4 → 2: reshard rules, the buffer's batches, then a step
+        two = pipeline("cuda", shards=2)
+        two.restore(st)
+        want = _resharded(st.filter_state["arrays"], 2)
+        _same_arrays(two._session.save_state(two._fstate)["arrays"], want,
+                     "4->2 restore")
+        buffered = st.buffer.size // per_batch
+        out2 = [b for _, b in zip(range(buffered + 1), two)]
+        for j in range(buffered):
+            _same_lm_batch(out2[j], lm[at + j], f"4->2 restart, buffered LM "
+                           f"batch {j}")
+        check(two.streams[-1].cursor == 3 * s + 2
+              and len(out2) == buffered + 1, "4->2 restart: no step")
+        st2 = two.state()
+
+        # 2 → 4: reshard rules, then a step
+        four = pipeline("cuda")
+        four.restore(st2)
+        _same_arrays(four._session.save_state(four._fstate)["arrays"],
+                     _resharded(st2.filter_state["arrays"], 4),
+                     "2->4 restore")
+        check([c.cursor for c in four.streams] == [3 * s + 2] * s,
+              "2->4 restore: stream cursors")
+        nb, out4 = len(out2), 0
+        for _ in four:
+            out4 += 1
+            if four.rows_in > st2.rows_in:
+                break
+        check(four.rows_in == st2.rows_in + s * r, "2->4 restart: no step")
+        log(f"  (b) restarts from the state after 3 steps: 4->4 gives the "
+            f"next {n_next} LM batches bit-identically, into step 4; 4->2 "
+            f"and 2->4 give reshard_state_arrays' arrays (sums split over "
+            f"the new shards, the largest row counter, one perm) and run a "
+            f"step ({nb} and {out4} LM batches up to its first)")
+    finally:
+        stream_lib.gen_batch = generate
+    return got
+
+
+def _sharded_soak(torch, batches, smi: str) -> dict:
+    """(c) A guarded 4-shard soak: per_shard, a bounded capacity, one
+    poisoned batch, one storm, one killed step; clean batches equal the
+    fault-free run."""
+    from repro_torch.core import build_session
+    from repro_torch.data.stream import RequestStream
+    from repro_torch.kernels.filter_chain import filter_chain as fc
+    from repro_torch.runtime import (DataFaultInjector, FailureInjector,
+                                     GuardedSession, GuardPolicy)
+
+    s, r, n, f = N_SHARDS, BATCH_ROWS, len(batches), SHARD_FAULTS
+    plan = _sharded_plan(engine="cuda", scope="per_shard", compact=True,
+                         capacity=GUARD_CAPACITY)
+    base = _masks(torch, plan, batches)
+    host = [b.cpu().numpy() for b in batches]
+    survivor = int(torch.nonzero(base[0])[0])
+    inj = DataFaultInjector(poison_at=f["poison"], storm_at=f["storm"],
+                            storm_row=host[0][:, survivor])
+    kill = FailureInjector(f["kill"])
+    guard = GuardedSession(build_session(plan),
+                           GuardPolicy(validate_every=1, checkpoint_every=2),
+                           step_injector=kill.maybe_fail)
+    stream = RequestStream(lambda b, start, rows: host[b],
+                           total_rows=n * s * r, batch_rows=s * r)
+    fc.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, results = guard.run_log_stream(stream, batch_hook=inj)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = _launch_counts()
+    check(sorted(results) == list(range(n)), f"soak results {sorted(results)}")
+    for b, res in results.items():
+        if b in f["poison"]:
+            check(res.quarantined and not bool(res.mask.any())
+                  and res.n_kept.shape == (s,) and res.n_pass == 0,
+                  f"sharded soak: poisoned batch {b} not quarantined per "
+                  "shard")
+        elif b in f["storm"]:
+            check(not res.quarantined and res.n_pass == s * r,
+                  f"sharded soak: the storm kept {res.n_pass} of {s * r}")
+        else:
+            check(not res.quarantined and torch.equal(res.mask, base[b]),
+                  f"sharded soak: clean batch {b} differs from the "
+                  "unguarded run")
+    h = guard.health
+    check(h.quarantined == 1 and h.overflow_events == 1 and h.retries >= 1,
+          f"sharded soak health {h.summary()}")
+    check([e["changes"] for e in h.degrades] == [{"capacity": "None"}],
+          f"sharded soak degrades {h.degrades}")
+    check(guard.session.sharded and guard.session.num_shards == s
+          and guard.session.validate_state(state)
+          and tuple(state.perm.shape) == (s, 4),
+          "sharded soak: final session or state")
+    # every stepped batch launches once a shard, the storm's lossless
+    # re-run once more; the poisoned batch and the killed step never
+    launches = s * (n - len(f["poison"]) + len(f["storm"]))
+    check(got["chain"] == launches and got["gather"] == launches,
+          f"sharded soak launches {got}, expected {launches} each")
+    log(f"  (c) guarded {s}-shard soak, {n} host batches of {s} x {r} rows, "
+        f"per_shard, capacity {GUARD_CAPACITY} a shard, faults {f}: "
+        f"{seconds:.2f} s ({smi}); clean batches == unguarded run, the "
+        f"storm kept all {s * r} rows, the poisoned batch quarantined with "
+        f"per-shard zeros; guard[{h.summary()}]; degrades "
+        f"{[e['changes'] for e in h.degrades]}; launches {got}")
+    return got
 
 
 if __name__ == "__main__":

@@ -21,6 +21,13 @@ manifest — what ``repro`` writes for an ``ml_dtypes`` bfloat16 array — and
 loads back as a ``torch.bfloat16`` tensor. ``load_checkpoint`` returns
 numpy leaves (bfloat16 ones as CPU tensors: numpy has no such dtype), or
 tensors on ``device`` when one is given.
+
+A sharded filter state (stacked ``[S, ...]`` leaves) saves and loads like
+any other. ``repro``'s ``load_checkpoint(shardings=...)`` is a
+``device_put`` of the loaded leaves onto a mesh; the port keeps all
+shards on one device, so ``device=`` is its counterpart. The elastic
+part of a restore onto another shard count is the session's
+(``FilterSession.restore_state``), not this module's.
 """
 
 from __future__ import annotations

@@ -4,6 +4,8 @@ Public API (one plan, one session), as in ``repro.core``:
   FilterPlan, TokenizeSpec         — the declarative config surface
   build_session → FilterSession    — compiled plan on one device; one
                                      ``session.step`` returning StepResult
+  ShardedAdaptiveFilter            — S shards of the filter on that device
+                                     (``plan.shards > 1``)
   Predicate, pack, OP_*            — predicate algebra (CNF via ``group``)
   OrderingConfig, OrderState       — Table-1 parameters + adaptive state
   Scope, EXCHANGE_MODES            — statistics scopes and exchange modes
@@ -21,6 +23,8 @@ from repro_torch.core.predicates import (OP_BETWEEN, OP_EQ, OP_GT,
                                          paper_filters_cnf)
 from repro_torch.core.scope import EXCHANGE_MODES, Scope
 from repro_torch.core.session import FilterSession, StepResult, build_session
+from repro_torch.core.sharded import (ShardedAdaptiveFilter, shard_slice,
+                                      stack_states)
 
 __all__ = [
     "ChainResult", "MonitorSpec", "available_engines", "get_engine",
@@ -28,5 +32,6 @@ __all__ = [
     "FilterPlan", "TokenizeSpec", "validate_combo", "OP_BETWEEN", "OP_EQ",
     "OP_GT", "OP_HASHMIX", "OP_LT", "Predicate", "pack", "paper_filters_4",
     "paper_filters_cnf", "EXCHANGE_MODES", "Scope", "FilterSession",
-    "StepResult", "build_session",
+    "StepResult", "build_session", "ShardedAdaptiveFilter", "shard_slice",
+    "stack_states",
 ]

@@ -1,8 +1,9 @@
-"""The adaptive filter operator: the functional step math (unsharded).
+"""The adaptive filter operator: the functional step math of one shard.
 
 PyTorch port of ``repro.core.adaptive_filter``. ``AdaptiveFilter`` wires
 an engine (``core/engine``) to the ordering math (``core.ordering`` /
-``core.stats``); ``FilterSession`` (``core.session``) drives it. Every
+``core.stats``); ``FilterSession`` (``core.session``) drives it, and
+``core.sharded.ShardedAdaptiveFilter`` runs one per shard. Every
 tensor stays on the filter's device: the only host-side decisions are the
 epoch boundary, taken from the session's mirror of the deterministic row
 counter, the ``capacity="auto"`` retune, which reads the device once
@@ -13,8 +14,9 @@ gather (``skip_amb_cap``, one read per step).
                          monitor stride advances but nothing re-ranks
   scope="per_batch"    → evidence dies with each batch (stride and epoch
                          counter persist)
-  exchange="deferred*" → the session fires the boundary (one device has
-                         nothing to merge, so the merge is the identity)
+  exchange="deferred*" → the session fires the boundary
+                         (``drive_exchange``); unsharded, the merge is the
+                         identity, sharded it sums over the shard axis
 """
 
 from __future__ import annotations
@@ -34,6 +36,25 @@ from repro_torch.core.scope import Scope, scope_from_str
 from repro_torch.core.stats import FilterStats
 
 CAPACITY_QUANTUM = 128   # auto capacities are multiples of this
+
+
+def drive_exchange(owner, state: OrderState) -> OrderState:
+    """Fire one deferred epoch boundary (the caller has found it due).
+
+    ``owner`` is an ``AdaptiveFilter`` or a ``ShardedAdaptiveFilter``:
+    anything with ``plan.exchange``, ``exchange_update`` and a
+    ``_pending_stats`` slot. One implementation, so the deferred-async
+    stash cannot drift between the two: "deferred-async" re-ranks on the
+    previous boundary's merged stats (the first boundary, and the first
+    after a restore, on its own) and keeps this boundary's for the next.
+    """
+    is_async = owner.plan.exchange == "deferred-async"
+    if is_async and owner._pending_stats is not None:
+        state, merged = owner.exchange_update(state, owner._pending_stats)
+    else:
+        state, merged = owner.exchange_update(state)
+    owner._pending_stats = merged if is_async else None
+    return state
 
 
 class StepMetrics(NamedTuple):
@@ -99,8 +120,14 @@ class AdaptiveFilter:
 
     # ------------------------------------------------------------- step
     def _advance_state(self, state: OrderState, res, n_rows: int,
-                       fire: bool | None) -> OrderState:
-        """Fold one batch's monitor evidence into the order state."""
+                       fire: bool | None,
+                       merged: FilterStats | None = None) -> OrderState:
+        """Fold one batch's monitor evidence into the order state.
+
+        ``merged`` is the eager CENTRALIZED merge of this batch's counters
+        over every shard (``scope.reduce_stats``), which folds in instead
+        of this shard's own ``res`` counters.
+        """
         plan = self.plan
         if not plan.adaptive:
             return state._replace(
@@ -111,9 +138,12 @@ class AdaptiveFilter:
             # epoch counter are stream properties and persist
             state = self.init_state()._replace(
                 sample_phase=state.sample_phase, epoch=state.epoch)
+        if merged is None:
+            merged = FilterStats(res.cut_counts, res.monitor_cost,
+                                 res.n_monitored, res.group_cut_counts)
         return ordering_lib.advance(
-            state, plan.ordering, res.cut_counts, res.monitor_cost,
-            res.n_monitored, n_rows=n_rows, group_cut=res.group_cut_counts,
+            state, plan.ordering, merged.num_cut, merged.cost_acc,
+            merged.n_monitored, n_rows=n_rows, group_cut=merged.group_cut,
             groups=self.groups, defer_epoch=self.exchange_deferred,
             fire=fire)
 
@@ -153,13 +183,42 @@ class AdaptiveFilter:
         ordering statistics advance as without it, since the monitor lane
         runs row-level on the full batch.
         """
-        perm = self._perm(state)
-        res = self._engine.run_chain(columns, self.specs, perm,
-                                     self._monitor_spec(state), skip=skip,
-                                     amb_cap=amb_cap)
+        perm, res, _, _ = self._run(state, columns, skip=skip,
+                                    amb_cap=amb_cap)
         new_state = self._advance_state(state, res, int(columns.shape[1]),
                                         fire)
         return new_state, res.mask, self._metrics(res, perm, new_state)
+
+    def _run(self, state: OrderState, columns: torch.Tensor, *,
+             capacity: int | None = None, skip=None, amb_cap: int = 0):
+        """The engine's chain (+ compaction when ``capacity`` is given) in
+        the state's order. Returns (perm, ChainResult, packed, n_kept);
+        packed and n_kept are None without compaction."""
+        perm = self._perm(state)
+        spec = self._monitor_spec(state)
+        if capacity is None:
+            res = self._engine.run_chain(columns, self.specs, perm, spec,
+                                         skip=skip, amb_cap=amb_cap)
+            return perm, res, None, None
+        res, packed, n_kept = self._engine.run_chain_compact(
+            columns, self.specs, perm, spec, capacity=capacity, skip=skip,
+            amb_cap=amb_cap)
+        return perm, res, packed, n_kept
+
+    def _compact_metrics(self, res, perm, new_state, n_kept) -> StepMetrics:
+        n_pass = res.mask.sum(dtype=torch.int32)
+        return self._metrics(res, perm, new_state, n_dropped=n_pass - n_kept)
+
+    def _call_capacity(self, capacity: int | None, n_rows: int) -> int:
+        """A compacting step's capacity: the caller's, else the plan's
+        fixed one (``capacity="auto"`` needs the caller's)."""
+        if capacity is not None:
+            return capacity
+        if self.plan.capacity == "auto":
+            raise ValueError(
+                "compact_capacity='auto' needs an explicit per-call "
+                "capacity: pass capacity=filt.resolve_capacity(n_rows)")
+        return self.resolve_capacity(n_rows)
 
     def _step_compact(self, state: OrderState, columns: torch.Tensor, *,
                       capacity: int | None = None, fire: bool | None = None,
@@ -170,21 +229,13 @@ class AdaptiveFilter:
         metrics); ``packed[:, :n_kept]`` equals ``columns[:, mask]`` up to
         the capacity.
         """
-        if capacity is None:
-            if self.plan.capacity == "auto":
-                raise ValueError(
-                    "compact_capacity='auto' needs an explicit per-call "
-                    "capacity: pass capacity=filt.resolve_capacity(n_rows)")
-            capacity = self.resolve_capacity(int(columns.shape[1]))
-        perm = self._perm(state)
-        res, packed, n_kept = self._engine.run_chain_compact(
-            columns, self.specs, perm, self._monitor_spec(state),
-            capacity=capacity, skip=skip, amb_cap=amb_cap)
+        perm, res, packed, n_kept = self._run(
+            state, columns,
+            capacity=self._call_capacity(capacity, int(columns.shape[1])),
+            skip=skip, amb_cap=amb_cap)
         new_state = self._advance_state(state, res, int(columns.shape[1]),
                                         fire)
-        n_pass = res.mask.sum(dtype=torch.int32)
-        metrics = self._metrics(res, perm, new_state,
-                                n_dropped=n_pass - n_kept)
+        metrics = self._compact_metrics(res, perm, new_state, n_kept)
         return new_state, packed, n_kept, res.mask, metrics
 
     # ------------------------------------------------------------ skip tier
@@ -225,24 +276,29 @@ class AdaptiveFilter:
         ``evidence_state`` still holds the epoch's monitor accumulators
         (the state before the boundary). Estimated pass rate = Π_g S_g over
         the exact per-group selectivities; correlation between groups is
-        absorbed by ``slack``. Reads the device once: call it only on a
-        step that crossed a boundary or started from a restored state.
+        absorbed by ``slack``. A stacked ``[S, ...]`` state takes the
+        largest pass rate over its shards and ``n_rows`` per shard. Reads
+        the device once: call it only on a step that crossed a boundary or
+        started from a restored state.
         """
         if self.plan.capacity != "auto":
             return
         st = evidence_state.stats
-        host = torch.cat([new_state.epoch.to(torch.float64).reshape(1),
-                          st.n_monitored.to(torch.float64).reshape(1),
-                          st.group_cut.to(torch.float64)]).cpu().numpy()
-        epoch = int(host[0])
+        k = new_state.epoch.numel()          # 1, or S for a stacked state
+        host = torch.cat([new_state.epoch.to(torch.float64).reshape(-1),
+                          st.n_monitored.to(torch.float64).reshape(-1),
+                          st.group_cut.to(torch.float64).reshape(-1)]
+                         ).cpu().numpy()
+        epoch = int(host[:k].max())
         if epoch <= self._auto_cap_epoch:
             return
         self._auto_cap_epoch = epoch
-        n_mon = max(float(host[1]), 0.0)
-        if n_mon <= 0.0:
+        n_mon = np.maximum(host[k:2 * k], 0.0)
+        if n_mon.max() <= 0.0:
             return                      # no evidence — keep current width
-        sel = np.clip(1.0 - host[2:] / max(n_mon, 1.0), 0.0, 1.0)
-        pass_rate = float(np.prod(sel))
+        gcut = host[2 * k:].reshape(k, -1)
+        sel = np.clip(1.0 - gcut / np.maximum(n_mon, 1.0)[:, None], 0.0, 1.0)
+        pass_rate = float(np.prod(sel, axis=-1).max())   # max over shards
         want = pass_rate * n_rows * self.plan.slack
         quant = int(np.ceil(want / CAPACITY_QUANTUM)) * CAPACITY_QUANTUM
         self._auto_cap = int(np.clip(quant, CAPACITY_QUANTUM, n_rows))
@@ -260,12 +316,5 @@ class AdaptiveFilter:
         return new_state, merged
 
     def exchange(self, state: OrderState) -> OrderState:
-        """Fire a due deferred boundary; "deferred-async" re-ranks on the
-        previous boundary's merged stats (the first boundary on its own)."""
-        is_async = self.plan.exchange == "deferred-async"
-        if is_async and self._pending_stats is not None:
-            state, merged = self.exchange_update(state, self._pending_stats)
-        else:
-            state, merged = self.exchange_update(state)
-        self._pending_stats = merged if is_async else None
-        return state
+        """Fire a due deferred boundary (``drive_exchange``)."""
+        return drive_exchange(self, state)

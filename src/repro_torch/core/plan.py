@@ -3,9 +3,10 @@
 PyTorch port of ``repro.core.plan``. The fields, the cross-field rules of
 ``validate_combo`` (with the same messages) and ``fingerprint()`` are the
 reference's; the engines are the port's (``"torch"``, ``"cuda"``) and the
-default engine is ``"cuda"``. Combinations whose slice of the port has
-not landed raise ``NotImplementedError`` naming the ``ROADMAP.md`` item:
-``shards > 1``, the ``numpy`` engine and ``cost_mode="measured"``.
+default engine is ``"cuda"``. ``shards > 1`` runs S shards on the
+session's one device (``core.sharded``). Combinations whose slice of the
+port has not landed raise ``NotImplementedError`` naming the
+``ROADMAP.md`` item: the ``numpy`` engine and ``cost_mode="measured"``.
 
 ``fingerprint()`` hashes the semantic identity of the adaptive state
 (chain, ordering config, scope, adaptivity, cost mode) byte for byte as
@@ -127,8 +128,6 @@ def validate_combo(*, scope: str, cost_mode: str, backend: str,
 def _reject_unported(plan: "FilterPlan") -> None:
     """Raise NotImplementedError for a combination of a later slice."""
     todo = []
-    if isinstance(plan.shards, int) and plan.shards > 1:
-        todo.append("shards > 1 (ROADMAP.md queue 1 item 10, sharding)")
     if plan.engine == "numpy":
         todo.append("engine='numpy' (ROADMAP.md queue 1 item 12, host "
                     "reference paths)")

@@ -7,8 +7,11 @@ from repro_torch.data.schema import RecordBatch
 from repro_torch.data.stream import (BASE_DISTRIBUTIONS, DriftConfig,
                                      LogStream, RequestStream, gen_batch,
                                      norm_ppf, threshold_for_quantile)
-from repro_torch.data.pipeline import Pipeline, PipelineState, make_pipeline
+from repro_torch.data.pipeline import (Pipeline, PipelineState,
+                                      ShardedPipeline, ShardedPipelineState,
+                                      make_pipeline)
 
 __all__ = ["RecordBatch", "BASE_DISTRIBUTIONS", "DriftConfig", "LogStream",
            "RequestStream", "gen_batch", "norm_ppf", "threshold_for_quantile",
-           "Pipeline", "PipelineState", "make_pipeline"]
+           "Pipeline", "PipelineState", "ShardedPipeline",
+           "ShardedPipelineState", "make_pipeline"]

@@ -13,8 +13,13 @@ driven by failure counters instead of reward, is a *degrade ladder*:
   detection
     * data-plane admission: a poisoned (non-finite) batch never reaches
       the step — it is QUARANTINED (all-False mask, zero metrics, state
-      unchanged, ``StepResult.quarantined=True``). A host batch is checked
-      with numpy, a tensor with one ``torch.isfinite(cols).all()`` read;
+      unchanged, ``StepResult.quarantined=True``; a tokenize plan's result
+      carries zero tokens, so a pipeline goes on past it). A host batch
+      is checked with numpy, a tensor with one
+      ``torch.isfinite(cols).all()`` read. A sharded session is guarded
+      whole: admission on the ``[C, S·R]`` batch, the overflow rung on
+      the shards' summed ``n_dropped``, the validator and the ring on the
+      stacked state;
     * capacity overflow: ``n_dropped > 0`` under a bounded compaction
       width (a column storm) triggers a lossless re-run of the SAME batch
       from the pre-step state — no survivor is ever lost, no statistic is
@@ -460,19 +465,36 @@ class GuardedSession:
         return bool(torch.isfinite(cols).all())
 
     def _quarantined_result(self, state, cols) -> StepResult:
-        """All-False mask and zero metrics on the state's device; the
-        perm, epoch and ranks are the (unchanged) state's own."""
+        """All-False mask and zero metrics on the state's device, one per
+        shard when sharded; the perm, epoch and ranks are the (unchanged)
+        state's own. A compacting plan's result keeps nothing (``n_kept``
+        0, an empty pack) and a tokenize plan's carries no token
+        (``n_tokens`` 0), so a pipeline goes on past the batch. ``repro``
+        returns no tokens there, and its pipeline stops; the port departs
+        from it on purpose."""
         dev = state.perm.device
-        z32 = torch.zeros((), dtype=torch.int32, device=dev)
+        plan = self.session.plan
+        lead = (self.session.num_shards,) if self.session.sharded else ()
+
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(lead + shape, dtype=dtype, device=dev)
+
+        z32 = zeros()
         metrics = StepMetrics(
-            work_units=torch.zeros((), dtype=torch.float32, device=dev),
-            n_pass=z32, perm=state.perm, epoch=state.epoch,
-            adj_rank=state.adj_rank, n_dropped=z32, n_tiles_pass=z32,
-            n_tiles_fail=z32, n_tiles_ambiguous=z32)
+            work_units=zeros(dtype=torch.float32), n_pass=z32,
+            perm=state.perm, epoch=state.epoch, adj_rank=state.adj_rank,
+            n_dropped=z32, n_tiles_pass=z32, n_tiles_fail=z32,
+            n_tiles_ambiguous=z32)
         mask = torch.zeros((int(cols.shape[1]),), dtype=torch.bool,
                            device=dev)
-        return StepResult(mask, None, None, None, None, metrics, None,
-                          warn_cell=None, quarantined=True, gate_s=0.0)
+        packed = n_kept = tokens = n_tokens = None
+        if plan.compact:
+            packed = zeros(int(cols.shape[0]), 0, dtype=torch.float32)
+            n_kept = z32
+        if plan.tokenize is not None:
+            tokens, n_tokens = zeros(0), z32
+        return StepResult(mask, packed, n_kept, tokens, n_tokens, metrics,
+                          None, warn_cell=None, quarantined=True, gate_s=0.0)
 
     # ------------------------------------------------------------ stream run
     def run_log_stream(self, stream, state=None, *,

@@ -768,3 +768,72 @@ def test_ring_skips_corrupt_blobs_newest_first():
         guard._ring.append(e)
     with pytest.raises(T_rt.GuardStateError, match="cannot self-heal"):
         guard._restore_newest_valid()
+
+
+# ============================= quarantine under device tokenize (port only)
+def _list_stream(cols_list):
+    rows = cols_list[0].shape[1]
+    return T_stream.RequestStream(lambda b, start, n: cols_list[b],
+                                  total_rows=len(cols_list) * rows,
+                                  batch_rows=rows)
+
+
+@pytest.mark.parametrize("shards", [1, 4], ids=["unsharded", "sharded"])
+@pytest.mark.parametrize("engine", ["torch", "cuda"])
+def test_guarded_tokenize_pipeline_goes_past_a_poisoned_batch(engine,
+                                                              shards):
+    """A quarantined batch of a tokenize plan carries zero tokens: the
+    guarded pipeline over a stream with one poisoned batch yields exactly
+    the LM batches of an unguarded pipeline over the stream without it
+    (the quarantine leaves the state untouched). ``repro`` stops there
+    (next test); the port departs from it on purpose (ROADMAP.md §3)."""
+    from repro_torch.data import pipeline as T_pipe
+
+    poisoned_at, n = 2, 6
+    plan = t_plan(engine=engine, shards=shards, compact=True,
+                  capacity="auto", tokenize=T.TokenizeSpec(1000, 1))
+    per_shard = [batches(n * shards, rows=2048,
+                         drift=T_stream.DriftConfig("regime", 4096, 1.5))
+                 [i::shards] for i in range(shards)]
+    bad = [list(b) for b in per_shard]
+    bad[shards - 1][poisoned_at] = bad[shards - 1][poisoned_at].copy()
+    bad[shards - 1][poisoned_at][0, 5] = np.nan
+    clean = [b[:poisoned_at] + b[poisoned_at + 1:] for b in per_shard]
+    lm = dict(batch_size=2, seq_len=31, vocab_size=1000, tokens_per_row=1)
+
+    def pipeline(session, streams):
+        if shards == 1:
+            return T_pipe.Pipeline(_list_stream(streams[0]), session, **lm)
+        return T_pipe.ShardedPipeline([_list_stream(s) for s in streams],
+                                      session, **lm)
+
+    guard = T_rt.GuardedSession(t_session(plan), policy())
+    got = list(pipeline(guard, bad))
+    want = list(pipeline(t_session(plan), clean))
+    assert guard.health.quarantined == 1
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g["tokens"], w["tokens"])
+        np.testing.assert_array_equal(g["labels"], w["labels"])
+
+
+def test_repro_still_stops_on_a_quarantined_tokenize_batch():
+    """The reference keeps its behaviour: its quarantined result of a
+    tokenize plan has no tokens, so ``host_tokens`` raises."""
+    cols = batches(1, rows=128)[0].copy()
+    cols[0, 3] = np.nan
+    r_guard = R_rt.GuardedSession(
+        R.build_session(r_plan(compact=True,
+                               tokenize=R.TokenizeSpec(1000, 1))),
+        policy(R_rt))
+    _, res = r_guard.step(r_guard.init_state(), cols)
+    assert res.quarantined
+    with pytest.raises(ValueError, match="no tokenize stage"):
+        res.host_tokens()
+    t_guard = T_rt.GuardedSession(
+        t_session(t_plan(compact=True, tokenize=T.TokenizeSpec(1000, 1))),
+        policy())
+    _, res = t_guard.step(t_guard.init_state(), cols)
+    assert res.quarantined and res.host_tokens().size == 0
+    assert int(res.n_tokens) == 0 and int(res.n_kept) == 0
+    assert res.survivors().shape == (3, 0)

@@ -2,8 +2,8 @@
 
 * No file of ``src/repro_torch`` — nor ``chip_smoke.py`` — imports ``jax``
   or ``repro`` (an AST scan of every import statement), and importing the
-  port's modules, the ingestion and guarded serving paths' included,
-  loads neither.
+  port's modules, the ingestion, guarded serving and sharded paths' and
+  the chain lint included, loads neither.
 * ``build_session`` without a device targets ``cuda``; with no card it
   raises instead of running on the CPU.
 * The ``gpu`` marker is registered in ``pyproject.toml``.
@@ -54,7 +54,8 @@ def test_port_files_exist():
     assert {"chip_smoke.py", "session.py", "filter_chain.py", "ops.py",
             "tokenizer.py", "tokenize_cases.py", "pipeline.py",
             "ckpt.py", "guard.py", "fault_tolerance.py", "server.py",
-            "traffic.py", "metrics.py", "serve.py"} <= names
+            "traffic.py", "metrics.py", "serve.py", "sharded.py",
+            "chain_lint.py", "diagnostics.py"} <= names
     assert (ROOT / "chip_smoke.py").is_file()
 
 
@@ -69,7 +70,8 @@ PORT_MODULES = ["repro_torch", "repro_torch.core", "repro_torch.data",
                 "repro_torch.data.tokenizer", "repro_torch.data.pipeline",
                 "repro_torch.checkpoint", "repro_torch.configs.paper_filters",
                 "repro_torch.kernels.filter_chain.ops", "repro_torch.runtime",
-                "repro_torch.serving", "repro_torch.launch.serve"]
+                "repro_torch.serving", "repro_torch.launch.serve",
+                "repro_torch.core.sharded", "repro_torch.analysis"]
 
 
 def test_importing_the_port_loads_no_jax_or_repro():

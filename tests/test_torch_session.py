@@ -189,7 +189,7 @@ def test_validate_combo_raises_the_same_errors(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(shards=2), "item 10"),
+    (dict(shards=2, cost_mode="measured"), "item 12"),
     (dict(engine="numpy"), "item 12"),
     (dict(cost_mode="measured"), "item 12"),
 ])
@@ -295,8 +295,14 @@ def test_restore_rejects_corruption_and_foreign_plans():
     sharded = dict(blob, shards=2, arrays={
         k: np.stack([v, v]) for k, v in blob["arrays"].items()})
     sharded["crc32"] = R_session.arrays_crc32(sharded["arrays"])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_sess.restore_state(sharded)
+    # a sharded blob reshards into the unsharded session, as in repro
+    from repro.data.pipeline import fstate_to_arrays
+    got = T.session.fstate_to_arrays(t_sess.restore_state(sharded))
+    want = fstate_to_arrays(r_sess.restore_state(sharded))
+    assert got.keys() == want.keys()
+    for k in got:
+        np.testing.assert_array_equal(got[k], want[k])
+        assert got[k].dtype == want[k].dtype
 
 
 def test_validate_state_and_foreign_state_reanchor():

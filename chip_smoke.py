@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Runs from the root of a checkout, on a machine with one NVIDIA H100, in
-six phases; any failure exits non-zero:
+seven phases; any failure exits non-zero:
 
 1. Device: the card's name and power limit, torch and CUDA versions; the
    kernels are built from ``src/repro_torch/kernels/filter_chain/csrc``
@@ -125,6 +125,23 @@ six phases; any failure exits non-zero:
    (quarantined with per-shard zeros), one storm (kept whole), one killed
    step; clean batches equal the fault-free run. Its launch counts go into
    the kernels' JSON as ``launches_sharded``.
+7. The paper's host reference path (``AdaptiveFilter(predicates,
+   AdaptiveFilterConfig(...)).process_stream``, ``static_filter``):
+   (a) Figure 1's sweep as ``benchmarks/fig1_permutations.py`` defines
+   it — ``paper_filters_4("fig1")``, ``OrderingConfig(1000, 200_000,
+   0.3)``, drift ``none`` and ``regime`` (period 750,000 rows, amplitude
+   1.5), 1,500,000 rows in 65,536-row batches (22 batches), the 24 static
+   orders and adaptive runs from three initial orders — on ``cuda`` and
+   on ``numpy`` with static costs: every batch's mask, perm, epoch and
+   ``n_pass`` equal, work units within rel 1e-5, exactly one chain launch
+   a batch on ``cuda``; the static spread (worst / best work units) and
+   adaptive / best from both engines; then the adaptive runs on ``numpy``
+   with ``cost_mode="measured"`` (perms, µs/row; every perm a
+   permutation). (b) Phase 3's first 4 batches through ``process_stream``
+   on ``cuda`` with ``compact_output=True, compact_capacity="auto"`` and
+   on ``numpy``: equal survivors (out of the gather kernel on ``cuda``),
+   one chain and one gather launch a batch, rows/s beside phase 3's.
+   Its launch counts go into the kernels' JSON as ``launches_host_paths``.
 
 The last two lines before the final one are the kernels' JSON record and
 ``nvidia-smi --query-gpu=name,power.limit``'s line; the final line is
@@ -197,6 +214,7 @@ def main() -> int:
     kernels = phase_numbers(torch, dev, runs, errs)
     phase_guarded(torch, dev, runs, smi)
     phase_sharded(torch, dev, runs, kernels, smi)
+    phase_host_paths(torch, dev, runs, kernels, smi)
     check(not sass_failures, "phase 1: " + "; ".join(sass_failures))
     log(json.dumps({"kernels": kernels}))
     log(smi)
@@ -2344,6 +2362,193 @@ def _sharded_soak(torch, batches, smi: str) -> dict:
         f"per-shard zeros; guard[{h.summary()}]; degrades "
         f"{[e['changes'] for e in h.degrades]}; launches {got}")
     return got
+
+
+# ===================================================================== 7
+FIG1_ROWS = 1_500_000          # benchmarks/common.py: BENCH_ROWS
+FIG1_BATCH = 65536             # benchmarks/common.py: BATCH_ROWS
+FIG1_INITS = ((0, 1, 2, 3), (3, 2, 1, 0), (3, 0, 2, 1))
+FIG1_DRIFTS = ("none", "regime")   # benchmarks/run.py runs both
+N_HOST_BATCHES = 4             # phase 7(b): phase 3's first 4 batches
+
+
+def phase_host_paths(torch, dev, runs, kernels: list, smi: str) -> None:
+    """Phase 7: the paper's experiments on the card (see the module
+    docstring)."""
+    log("== phase 7: the paper's host reference path (Figure 1's sweep on "
+        "cuda and numpy; process_stream at full width)")
+    t0 = time.perf_counter()
+    launches = {"fig1": _fig1_sweep(torch, smi),
+                "full": _host_full_width(torch, runs, smi)}
+    for row in kernels:
+        got = {"filter_chain": launches["fig1"]["chain"],
+               "filter_chain[compact]": launches["full"]["chain"],
+               "compact_gather": launches["full"]["gather"]
+               }.get(row["name"])
+        if got is not None:
+            row["launches_host_paths"] = got
+    log(f"  phase 7 launches {launches}")
+    log(f"  phase 7 took {time.perf_counter() - t0:.1f} s ({smi})")
+
+
+def _fig1_filters(engine: str, drift_kind: str, cost_mode: str = "static",
+                  statics: bool = True):
+    """Figure 1's runs as ``benchmarks/fig1_permutations.py`` builds them:
+    (name, filter) for the 24 static orders of the paper's chain, then
+    adaptive runs from three initial orders."""
+    import itertools
+
+    from repro_torch.core import (AdaptiveFilter, AdaptiveFilterConfig,
+                                  OrderingConfig, paper_filters_4,
+                                  static_filter)
+
+    preds = paper_filters_4("fig1")
+    ordering = OrderingConfig(collect_rate=1000, calculate_rate=200_000,
+                              momentum=0.3)
+    if statics:
+        for perm in itertools.permutations(range(4)):
+            yield f"static_{''.join(map(str, perm))}", static_filter(
+                preds, order=list(perm), backend=engine)
+    for init in FIG1_INITS:
+        yield f"adaptive_{''.join(map(str, init))}", AdaptiveFilter(
+            [preds[i] for i in init], AdaptiveFilterConfig(
+                ordering=ordering, backend=engine, cost_mode=cost_mode))
+
+
+def _fig1_run(filt, batches) -> tuple[list, float]:
+    """One run of the figure: per batch (mask, metrics), wall seconds."""
+    t0 = time.perf_counter()
+    out = [(mask, d) for _, mask, d in filt.process_stream(batches)]
+    return out, time.perf_counter() - t0
+
+
+def _fig1_summary(label: str, works: dict, seconds: float, rows: int,
+                  smi: str) -> None:
+    statics = [w for k, w in works.items() if k.startswith("static")]
+    adaptive = [w for k, w in works.items() if k.startswith("adaptive")]
+    best, worst = min(statics), max(statics)
+    log(f"    {label}: static spread {worst / best:.3f}x (paper: ~2.3x), "
+        f"adaptive/best {max(adaptive) / best:.3f}, adaptive/worst "
+        f"{max(adaptive) / worst:.3f}; {len(works)} runs in {seconds:.2f} s,"
+        f" {seconds * 1e6 / (len(works) * rows):.4f} us/row ({smi})")
+
+
+def _fig1_sweep(torch, smi: str) -> dict:
+    """(a) Figure 1's sweep on ``cuda`` and on ``numpy``, both with static
+    costs: every batch's mask, perm, epoch and n_pass equal, work units
+    within rel 1e-5, one chain launch a batch on ``cuda``; then the
+    adaptive runs on ``numpy`` with measured costs, as the figure runs
+    them."""
+    import numpy as np
+
+    from repro_torch.data.stream import DriftConfig, gen_batch
+    from repro_torch.kernels.filter_chain import filter_chain as fc
+
+    n = max(1, FIG1_ROWS // FIG1_BATCH)
+    rows = n * FIG1_BATCH
+    fc.reset_launch_counts()
+    n_cuda_runs = 0
+    for kind in FIG1_DRIFTS:
+        drift = DriftConfig(kind=kind, period_rows=750_000, amplitude=1.5)
+        batches = [gen_batch(0, b, b * FIG1_BATCH, FIG1_BATCH, drift)
+                   for b in range(n)]
+        log(f"  (a) Figure 1, drift {kind}: {n} batches of {FIG1_BATCH} "
+            f"rows ({rows:,} rows), 24 static orders + adaptive from "
+            f"{len(FIG1_INITS)} initial orders")
+        works = {"cuda": {}, "numpy": {}}
+        seconds = {"cuda": 0.0, "numpy": 0.0}
+        for (name, f_cu), (_, f_np) in zip(_fig1_filters("cuda", kind),
+                                           _fig1_filters("numpy", kind)):
+            got, s_cu = _fig1_run(f_cu, batches)
+            want, s_np = _fig1_run(f_np, batches)
+            n_cuda_runs += 1
+            seconds["cuda"] += s_cu
+            seconds["numpy"] += s_np
+            check(len(got) == len(want) == n, f"fig1 {kind} {name}: "
+                  f"{len(got)} / {len(want)} batches")
+            keys = ("perm", "epoch", "n_pass")
+            for i, ((gm, gd), (wm, wd)) in enumerate(zip(got, want)):
+                g, w = ({k: d[k] for k in keys} for d in (gd, wd))
+                check(np.array_equal(gm, wm) and g == w,
+                      f"fig1 {kind} {name}, batch {i}: cuda != numpy "
+                      f"(mask equal {np.array_equal(gm, wm)}; {g} vs {w})")
+                check(abs(gd["work_units"] - wd["work_units"])
+                      <= 1e-5 * abs(wd["work_units"]),
+                      f"fig1 {kind} {name}, batch {i}: work units "
+                      f"{gd['work_units']} vs {wd['work_units']}")
+            for eng, out in (("cuda", got), ("numpy", want)):
+                works[eng][name] = sum(d["work_units"] for _, d in out)
+            if name.startswith("adaptive"):
+                log(f"    {name}: final perm {got[-1][1]['perm']}, epochs "
+                    f"{got[-1][1]['epoch']}")
+        for eng in ("cuda", "numpy"):
+            _fig1_summary(eng, works[eng], seconds[eng], rows, smi)
+        measured = []
+        t0 = time.perf_counter()
+        for name, filt in _fig1_filters("numpy", kind, "measured",
+                                        statics=False):
+            out, sec = _fig1_run(filt, batches)
+            check(all(sorted(d["perm"]) == [0, 1, 2, 3] for _, d in out),
+                  f"fig1 {kind} {name} measured: a perm is no permutation")
+            measured.append(f"{name} perm {out[-1][1]['perm']} "
+                            f"{sec * 1e6 / rows:.4f} us/row")
+        log(f"    numpy, cost_mode=measured ({time.perf_counter() - t0:.2f}"
+            f" s): " + "; ".join(measured))
+    got = _launch_counts()
+    want = dict(chain=n_cuda_runs * n, skip=0, gather=0, stats=0)
+    check(got == want, f"fig1 launches {got}, expected {want}")
+    log(f"  (a) cuda == numpy on every batch of {n_cuda_runs} runs "
+        f"(masks, perm, epoch, n_pass; work units within rel 1e-5); "
+        f"launches {got}")
+    return got
+
+
+def _host_full_width(torch, runs, smi: str) -> dict:
+    """(b) Phase 3's first batches through ``process_stream`` of the
+    paper's surface: ``cuda`` with ``compact_output=True,
+    compact_capacity="auto"`` (the survivors out of the gather kernel)
+    and ``numpy``; the survivors must be equal."""
+    import numpy as np
+
+    from repro_torch.configs.paper_filters import PaperWorkload, filter_chain
+    from repro_torch.core import AdaptiveFilter, AdaptiveFilterConfig
+    from repro_torch.kernels.filter_chain import filter_chain as fc
+
+    n, r = N_HOST_BATCHES, BATCH_ROWS
+    batches = runs["batches"][:n]
+    host = [b.cpu().numpy() for b in batches]
+    preds, ordering = filter_chain("cnf"), PaperWorkload().ordering
+    cu = AdaptiveFilter(preds, AdaptiveFilterConfig(
+        ordering=ordering, backend="cuda", compact_output=True,
+        compact_capacity="auto"), device=batches[0].device)
+    fc.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = list(cu.process_stream(batches))
+    s_cu = time.perf_counter() - t0
+    launched = _launch_counts()
+    t0 = time.perf_counter()
+    want = list(AdaptiveFilter(preds, AdaptiveFilterConfig(
+        ordering=ordering, backend="numpy")).process_stream(host))
+    s_np = time.perf_counter() - t0
+    check(launched == dict(chain=n, skip=0, gather=n, stats=0),
+          f"full-width process_stream launches {launched}")
+    for i, ((gs, gm, gd), (ws, wm, wd)) in enumerate(zip(got, want)):
+        check(np.array_equal(gs, ws) and gs.shape[1] == wd["n_pass"] > 0
+              and np.array_equal(gm, wm) and gd["perm"] == wd["perm"]
+              and gd["epoch"] == wd["epoch"] and gd["n_dropped"] == 0,
+              f"full-width process_stream, batch {i}: cuda survivors "
+              f"{gs.shape} != numpy {ws.shape} or perm/epoch differ")
+    phase3 = N_BATCHES * r / runs["auto"]["cuda"]["seconds"]
+    log(f"  (b) process_stream, {n} x {r} rows of phase 3, paper CNF chain: "
+        f"cuda (compact_output, capacity auto) {n * r / s_cu:,.0f} rows/s "
+        f"({s_cu * 1e3:.1f} ms), numpy {n * r / s_np:,.0f} rows/s "
+        f"({s_np:.2f} s); survivors equal, "
+        f"{sum(d['n_pass'] for *_, d in got):,} rows; phase 3's session.step on cuda with capacity auto "
+        f"{phase3:,.0f} rows/s, compaction off "
+        f"{N_BATCHES * r / runs['off']['cuda']['seconds']:,.0f} rows/s "
+        f"({smi}); launches {launched}")
+    return launched
 
 
 if __name__ == "__main__":

@@ -9,9 +9,17 @@ Public API (one plan, one session), as in ``repro.core``:
   Predicate, pack, OP_*            — predicate algebra (CNF via ``group``)
   OrderingConfig, OrderState       — Table-1 parameters + adaptive state
   Scope, EXCHANGE_MODES            — statistics scopes and exchange modes
-  engine (get_engine/register)     — the "torch" and "cuda" engines
+  engine (get_engine/register)     — the "torch", "cuda" and "numpy"
+                                     engines
+  AdaptiveFilter, AdaptiveFilterConfig, StepMetrics, static_filter
+                                   — the paper's surface: a filter over a
+                                     chain, ``process_stream`` over a
+                                     stream of batches
 """
 
+from repro_torch.core.adaptive_filter import (AdaptiveFilter,
+                                              AdaptiveFilterConfig,
+                                              StepMetrics, static_filter)
 from repro_torch.core.engine import (ChainResult, MonitorSpec,
                                      available_engines, get_engine, register)
 from repro_torch.core.ordering import (OrderingConfig, OrderState,
@@ -27,6 +35,7 @@ from repro_torch.core.sharded import (ShardedAdaptiveFilter, shard_slice,
                                       stack_states)
 
 __all__ = [
+    "AdaptiveFilter", "AdaptiveFilterConfig", "StepMetrics", "static_filter",
     "ChainResult", "MonitorSpec", "available_engines", "get_engine",
     "register", "OrderingConfig", "OrderState", "init_order_state",
     "FilterPlan", "TokenizeSpec", "validate_combo", "OP_BETWEEN", "OP_EQ",

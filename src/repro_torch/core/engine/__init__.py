@@ -1,12 +1,14 @@
 """Execution-engine registry (counterpart of ``repro.core.engine``).
 
-Two engines ship in the port and register themselves on import:
+Three engines ship in the port and register themselves on import:
 
   torch — masked vectorized evaluation in plain PyTorch (CPU or CUDA);
           the counterpart of ``jnp``
   cuda  — the hand-written chain, gather and tile-stats kernels; on a
           CPU tensor their wrappers run the kernels' plain twins. The
           counterpart of ``pallas``
+  numpy — row-exact compacted host path (wall-clock-true, measured
+          costs); the counterpart of ``repro``'s ``numpy``
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ def available_engines() -> tuple:
 
 
 from repro_torch.core.engine import cuda_engine as _cuda_engine    # noqa: E402
+from repro_torch.core.engine import numpy_engine as _numpy_engine  # noqa: E402
 from repro_torch.core.engine import torch_engine as _torch_engine  # noqa: E402
 
 __all__ = ["ChainResult", "FilterEngine", "MonitorSpec", "register",

@@ -2,11 +2,15 @@
 
 PyTorch port of ``repro.core.plan``. The fields, the cross-field rules of
 ``validate_combo`` (with the same messages) and ``fingerprint()`` are the
-reference's; the engines are the port's (``"torch"``, ``"cuda"``) and the
-default engine is ``"cuda"``. ``shards > 1`` runs S shards on the
-session's one device (``core.sharded``). Combinations whose slice of the
-port has not landed raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item: the ``numpy`` engine and ``cost_mode="measured"``.
+reference's; the engines are the port's (``"torch"``, ``"cuda"``,
+``"numpy"``) and the default engine is ``"cuda"``. ``shards > 1`` runs S
+shards on the session's one device (``core.sharded``). Every combination
+``repro`` builds builds here, and every one it refuses is refused with
+its message, the engine's name aside: ``cost_mode="measured"`` needs the
+``numpy`` engine, and a host engine cannot shard, compact or take
+``skip_tier="auto"``. A host engine streams through
+``AdaptiveFilter.process_stream``; a session's step of its plan runs the
+``torch`` engine (``core.session``).
 
 ``fingerprint()`` hashes the semantic identity of the adaptive state
 (chain, ordering config, scope, adaptivity, cost mode) byte for byte as
@@ -125,20 +129,6 @@ def validate_combo(*, scope: str, cost_mode: str, backend: str,
             + "\n  - ".join(problems))
 
 
-def _reject_unported(plan: "FilterPlan") -> None:
-    """Raise NotImplementedError for a combination of a later slice."""
-    todo = []
-    if plan.engine == "numpy":
-        todo.append("engine='numpy' (ROADMAP.md queue 1 item 12, host "
-                    "reference paths)")
-    if plan.cost_mode == "measured":
-        todo.append("cost_mode='measured' (ROADMAP.md queue 1 item 12, "
-                    "host reference paths)")
-    if todo:
-        raise NotImplementedError(
-            "not ported to repro_torch yet: " + "; ".join(todo))
-
-
 @dataclasses.dataclass(frozen=True)
 class TokenizeSpec:
     """On-device tokenize/pack stage appended to the compacted survivors."""
@@ -180,7 +170,6 @@ class FilterPlan:
         object.__setattr__(self, "predicates", tuple(self.predicates))
         if not self.predicates:
             raise ValueError("need at least one predicate")
-        _reject_unported(self)
         validate_combo(scope=self.scope, cost_mode=self.cost_mode,
                        backend=self.engine, compact_output=self.compact,
                        compact_capacity=self.capacity,

@@ -32,6 +32,12 @@ gather (none on ``cuda``), and the ``skip_tier="auto"`` tuner's wall
 clock (a ``synchronize`` plus one read of the tile counters on the
 tier's arm).
 
+A plan on a host engine (``engine="numpy"``) streams through
+``AdaptiveFilter.process_stream``; its session's ``step`` runs the
+``torch`` engine on the session's device, as ``repro``'s runs ``jnp``
+on its default device. It is the one place where the engine a plan
+names is not the engine that runs.
+
 Checkpoints are the reference's schema v2 envelope (plan fingerprint,
 shard layout, accumulator layout, crc32 over the state arrays) and load
 v1 raw-array blobs; blobs move between ``repro`` and ``repro_torch`` in
@@ -53,7 +59,10 @@ import torch
 
 from repro_torch.core import skip_tier as skip_tier_lib
 from repro_torch.core import stats as stats_lib
-from repro_torch.core.adaptive_filter import AdaptiveFilter, StepMetrics
+from repro_torch.core.adaptive_filter import (AdaptiveFilter,
+                                              AdaptiveFilterConfig,
+                                              StepMetrics,
+                                              on_card_unless_asked)
 from repro_torch.core.ordering import OrderState
 from repro_torch.core.plan import FilterPlan, TokenizeSpec
 from repro_torch.core.sharded import ShardedAdaptiveFilter
@@ -285,7 +294,9 @@ class FilterSession:
         elif plan.shards > 1:
             self.filter = ShardedAdaptiveFilter(plan, self.device)
         else:
-            self.filter = AdaptiveFilter(plan, self.device)
+            self.filter = AdaptiveFilter(plan.predicates,
+                                         AdaptiveFilterConfig.of(plan),
+                                         device=self.device)
         # host mirror of rows_into_epoch and the tensor it mirrors; whether
         # that state came from outside (a restore or a foreign state)
         self._rows_host = 0
@@ -313,6 +324,19 @@ class FilterSession:
         state = self.filter.init_state()
         self._anchor(state, 0)
         return state
+
+    @classmethod
+    def from_filter(cls, filt, tokenize: TokenizeSpec | None = None
+                    ) -> "FilterSession":
+        """Adopt a filter built on the paper's surface
+        (``AdaptiveFilter(predicates, config)``), or a sharded one, under
+        its plan (plus ``tokenize``), on its device. Skips the chain lint,
+        as ``repro``'s does: the filter is already built."""
+        plan = filt.plan if isinstance(filt, ShardedAdaptiveFilter) \
+            else filt.config.plan(filt.predicates)
+        if tokenize is not None:
+            plan = dataclasses.replace(plan, tokenize=tokenize)
+        return cls(plan, filt.device, _filter=filt)
 
     def with_tokenize(self, tokenize: TokenizeSpec) -> "FilterSession":
         """The same filter, device and state mirror, plus the device
@@ -602,12 +626,8 @@ def build_session(plan: FilterPlan, device=None) -> FilterSession:
     ``device="cpu"`` to run on the CPU (the engines' plain paths).
     """
     _lint_plan_chain(plan)
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "build_session: no CUDA device is available; repro_torch runs "
-            "on the GPU unless device='cpu' is passed explicitly")
-    return FilterSession(plan, device)
+    return FilterSession(plan, on_card_unless_asked(
+        "cuda" if device is None else device, "build_session"))
 
 
 # ========================================================== elastic reshard

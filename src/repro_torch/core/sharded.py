@@ -39,7 +39,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.adaptive_filter import AdaptiveFilter, drive_exchange
+from repro_torch.core.adaptive_filter import (AdaptiveFilter,
+                                              AdaptiveFilterConfig,
+                                              drive_exchange)
 from repro_torch.core.ordering import OrderState
 from repro_torch.core.plan import FilterPlan
 from repro_torch.core.scope import Scope, reduce_stats
@@ -88,7 +90,10 @@ class ShardedAdaptiveFilter:
 
     def __init__(self, plan: FilterPlan, device):
         self.plan = plan
-        self.inner = AdaptiveFilter(plan, device)
+        self.inner = AdaptiveFilter(plan.predicates,
+                                    AdaptiveFilterConfig.of(plan),
+                                    device=device)
+        self.config = self.inner.config
         self.device = self.inner.device
         self.num_shards = int(plan.shards)
         self._scope = self.inner._scope
@@ -126,7 +131,7 @@ class ShardedAdaptiveFilter:
         runs = [inner._run(st, cols, capacity=capacity)
                 for st, cols in zip(states, parts)]
         merged = [None] * self.num_shards
-        if (self._scope is Scope.CENTRALIZED and inner.plan.adaptive
+        if (self._scope is Scope.CENTRALIZED and inner.config.adaptive
                 and not inner.exchange_deferred):
             total = reduce_stats(_stack([
                 FilterStats(res.cut_counts, res.monitor_cost,

@@ -93,14 +93,18 @@ def tile_summaries(columns: torch.Tensor, *, bloom: bool):
     return mins, maxs, bl
 
 
-def bloom_bitmap(columns: torch.Tensor) -> torch.Tensor:
+def bloom_bitmap(columns: torch.Tensor, *,
+                 nonfinite_bit: bool = True) -> torch.Tensor:
     """Bloom bitmap bool[C, T, BLOOM_BITS] of a batch.
 
     Key = round(x) mod BLOOM_BITS (``torch.remainder``: the sign of the
-    divisor, as ``jnp.mod``). NaN lanes and non-finite keys fold to key 0,
-    as they do in ``repro`` — only ever ADDING a bit, which weakens fail
-    proofs and never strengthens them. Built with one ``scatter_`` into
-    [C, T, 128]; nothing of size [C, T, 128, 128] is materialized.
+    divisor, as ``jnp.mod``). NaN lanes fold to key 0. A non-finite key
+    (x = ±inf) folds to key 0 too, as XLA:CPU folds it under ``repro``'s
+    jnp and Pallas engines — only ever ADDING a bit, which weakens fail
+    proofs and never strengthens them; with ``nonfinite_bit=False`` it
+    sets no bit, as under ``repro``'s numpy engine (the ``numpy`` engine's
+    triage: its keys land in a spare 129th lane, dropped). Built with one
+    ``scatter_``; nothing of size [C, T, 128, 128] is materialized.
     """
     padded = pad_to_tiles(columns)
     n_cols = padded.shape[0]
@@ -108,10 +112,12 @@ def bloom_bitmap(columns: torch.Tensor) -> torch.Tensor:
     zero = torch.zeros((), dtype=tiles.dtype, device=tiles.device)
     vals = torch.where(torch.isnan(tiles), zero, torch.round(tiles))
     keys = torch.remainder(vals, float(BLOOM_BITS))
-    keys = torch.where(torch.isfinite(keys), keys, zero).to(torch.int64)
-    bits = torch.zeros(tiles.shape[:2] + (BLOOM_BITS,), dtype=torch.bool,
-                       device=tiles.device)
-    return bits.scatter_(2, keys, True)
+    spare = 0 if nonfinite_bit else 1
+    keys = torch.where(torch.isfinite(keys), keys,
+                       zero + spare * BLOOM_BITS).to(torch.int64)
+    bits = torch.zeros(tiles.shape[:2] + (BLOOM_BITS + spare,),
+                       dtype=torch.bool, device=tiles.device)
+    return bits.scatter_(2, keys, True)[..., :BLOOM_BITS]
 
 
 # ------------------------------------------------------------ resolution

@@ -47,7 +47,8 @@ driven by failure counters instead of reward, is a *degrade ladder*:
       simply overwrite their earlier, suspect results;
     * a graceful-degradation ladder driven by consecutive failures:
       cuda → torch engine (on the same device: ``torch`` runs on the
-      card too), skip_tier → off, fused → mask compaction (bounded
+      card too; a ``numpy`` plan starts below this rung, as in
+      ``repro``), skip_tier → off, fused → mask compaction (bounded
       capacity → lossless). Plan fingerprints exclude exactly these
       execution fields, so the live ``OrderState`` and every ring
       checkpoint stay valid across all rungs. The ladder also climbs
@@ -385,9 +386,11 @@ class GuardedSession:
     # --------------------------------------------------------- degrade ladder
     def _degrade_once(self, reason: str) -> bool:
         """One rung down: cuda→torch, then skip_tier→off, then fused→mask
-        compaction. Returns False when already at the bottom."""
+        compaction. Returns False when already at the bottom. ``torch``
+        and ``numpy`` are bottom engines, as ``jnp`` and ``numpy`` are in
+        ``repro``: a ``numpy`` plan's first rung is its skip tier."""
         plan = self.session.plan
-        if plan.engine != "torch":
+        if plan.engine not in ("torch", "numpy"):
             changes: dict = {"engine": "torch"}
         elif plan.skip_tier != "off":
             changes = {"skip_tier": "off"}

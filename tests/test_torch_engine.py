@@ -267,7 +267,7 @@ def test_run_chain_compact_matches_repro_jnp(engine):
 
 
 def test_registry_surface():
-    assert available_engines() == ("cuda", "torch")
+    assert available_engines() == ("cuda", "numpy", "torch")
     with pytest.raises(ValueError, match="unknown filter engine"):
         get_engine("jnp")
 

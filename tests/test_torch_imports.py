@@ -55,7 +55,8 @@ def test_port_files_exist():
             "tokenizer.py", "tokenize_cases.py", "pipeline.py",
             "ckpt.py", "guard.py", "fault_tolerance.py", "server.py",
             "traffic.py", "metrics.py", "serve.py", "sharded.py",
-            "chain_lint.py", "diagnostics.py"} <= names
+            "chain_lint.py", "diagnostics.py", "np_exec.py",
+            "numpy_engine.py"} <= names
     assert (ROOT / "chip_smoke.py").is_file()
 
 

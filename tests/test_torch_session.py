@@ -7,8 +7,8 @@ compaction off, at a fixed (saturating) capacity and at ``"auto"``.
 ``StepResult`` masks, packed buffers, ``n_kept``, metrics, the perm
 trajectory and the final ``save_state`` arrays agree exactly; ``adj_rank``
 and the cuda engine's work sum to rtol 1e-6 (summation order). Plus the
-plan surface (fingerprint, validation messages, unported combinations)
-and checkpoints across the packages.
+plan surface (fingerprint, validation messages, the host-engine and
+measured-cost combinations) and checkpoints across the packages.
 """
 
 import dataclasses
@@ -188,14 +188,42 @@ def test_validate_combo_raises_the_same_errors(kw):
     assert str(got.value) == str(want.value)
 
 
+ENGINE_TWIN = {"jnp": "torch", "pallas": "cuda", "numpy": "numpy"}
+
+
+def _built_or_message(make):
+    try:
+        return make()
+    except ValueError as e:
+        return str(e)
+
+
 @pytest.mark.parametrize("kw,item", [
     (dict(shards=2, cost_mode="measured"), "item 12"),
     (dict(engine="numpy"), "item 12"),
     (dict(cost_mode="measured"), "item 12"),
 ])
 def test_unported_combinations_raise_not_implemented(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        t_plan(**kw)
+    """The combinations ``item`` of ROADMAP queue 1 ported (they raised
+    NotImplementedError before it): for the same keywords, with the
+    engine names mapped (``r_plan``'s ``jnp`` is the port's ``torch``),
+    the port builds the plan where ``repro`` does, with its fingerprint,
+    and raises its ValueError text where ``repro`` raises."""
+    r_kw = {"engine": "jnp", **kw}
+    t_kw = dict(r_kw, engine=ENGINE_TWIN[r_kw["engine"]])
+    chain = ("cnf", R.OrderingConfig(**ORDER), T.OrderingConfig(**ORDER))
+    want = _built_or_message(lambda: R.FilterPlan(
+        R_paper.filter_chain(chain[0]), chain[1], **r_kw))
+    got = _built_or_message(lambda: T.FilterPlan(
+        T_paper.filter_chain(chain[0]), chain[2], **t_kw))
+    if isinstance(want, str):
+        for r_name, t_name in ENGINE_TWIN.items():
+            got = got.replace(repr(t_name), repr(r_name))
+        assert got == want, item
+    else:
+        assert got.fingerprint() == want.fingerprint(), item
+        assert (got.engine, got.cost_mode) == (t_kw["engine"],
+                                              want.cost_mode), item
 
 
 @pytest.mark.parametrize("tier", ["zonemap", "zonemap+bloom", "auto"])
